@@ -1,0 +1,393 @@
+"""Drive the PyTorch port on one CUDA card and hold its kernels to their
+plain versions.
+
+    python3 chip_smoke.py            (from the repository root, one card)
+
+Phases, in order; any failure exits non-zero:
+ 1. device: the card's name and power limit; TF32 off for matmuls and convs;
+ 2. build: K1 (csrc/periodic_embed.cu) with nvcc, printing `-Xptxas -v`;
+ 3. kernels: each kernel's wrapper against its plain PyTorch version on the
+    card at the main path's shapes, forward and backward, timed with CUDA
+    events; then one fit step with injected inputs on the card against the
+    same step on the CPU (plain versions);
+ 4. main path: `run_completion` on the 384x512 synthetic example at the
+    default CompletionConfig widths, 21 iterations (two blocks of 10 steps,
+    evals at 10 and 20, the final render, composite and val_lpips), with
+    every launch count set to 0 just before and read just after;
+ 5. one JSON line of kernels, the nvidia-smi line, and the final
+    {"ok": true, "device": {...}} line.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+MEM_BW = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
+F32_PEAK = 67e12        # H100 SXM float32 outside the tensor cores, FLOP/s
+
+
+def fail(msg):
+    print(f'[chip_smoke] FAIL: {msg}', file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg):
+    print(f'[chip_smoke] {msg}', flush=True)
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time for the work: bytes over the memory rate or f32
+    operations over the f32 peak, whichever is larger."""
+    t_bytes, t_ops = n_bytes / MEM_BW, n_ops / F32_PEAK
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def time_ms(fn, iters=20, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def judge(pairs, floor=1e-5):
+    """Hold a kernel to its plain version. pairs: (kernel output, plain
+    version in float32, plain version in float64 on the same inputs).
+    Returns the kernel's largest absolute difference from the f32 plain
+    version, and its error and the f32 plain version's own error against
+    the float64 one, both relative to the largest float64 magnitude. The
+    kernel passes when its error is at most twice the plain version's own,
+    or `floor` (a few f32 ulp at the largest magnitude)."""
+    abs_err = k_err = p_err = 0.0
+    for got, p32, p64 in pairs:
+        got, p32, p64 = (t.detach().double() for t in (got, p32, p64))
+        scale = max(float(p64.abs().max()), 1e-30)
+        abs_err = max(abs_err, float((got - p32).abs().max()))
+        k_err = max(k_err, float((got - p64).abs().max()) / scale)
+        p_err = max(p_err, float((p32 - p64).abs().max()) / scale)
+    return dict(max_abs_err=abs_err, rel_err_vs_f64=k_err,
+                plain_rel_err_vs_f64=p_err, tol=max(2 * p_err, floor))
+
+
+def merge(a, b):
+    """Worst of two judge() results."""
+    return {k: max(a[k], b[k]) for k in a}
+
+
+def phase_device():
+    import torch
+    if not torch.cuda.is_available():
+        fail('torch.cuda.is_available() is false: this script needs a card')
+    if not os.path.isdir(os.path.join(ROOT, 'npp_tpu_torch')):
+        fail(f'no npp_tpu_torch package beside {__file__}: run it from a '
+             'checkout of the repository')
+    sys.path.insert(0, ROOT)
+    from npp_tpu_torch.device import set_reference_precision
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    set_reference_precision()
+    log(f'device {name}; torch {torch.__version__}, CUDA {torch.version.cuda}')
+    log('TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, '
+        'torch.backends.cudnn.allow_tf32 = False')
+    return name, smi
+
+
+def phase_build():
+    from npp_tpu_torch.kernels.build import build_library
+    t0 = time.time()
+    build_library('periodic_embed', ptxas_verbose=True)
+    log(f'built K1 from csrc/periodic_embed.cu in {time.time() - t0:.1f} s')
+
+
+def check_k1(gen):
+    """K1 at the canvas table's shape (384*512 rows, K=3, 1386 channels)."""
+    import torch
+    from npp_tpu_torch.kernels.periodic_embed import (periodic_embed,
+                                                      periodic_embed_plain)
+    from npp_tpu_torch.utils.synthetic import H, W, synthetic_data
+    data = synthetic_data(0)
+    dev = torch.device('cuda')
+    ys, xs = torch.meshgrid(torch.arange(H, device=dev),
+                            torch.arange(W, device=dev), indexing='ij')
+    coords = torch.stack([ys, xs], -1).reshape(-1, 2).float()
+    angles = torch.tensor(data.selected_angles, device=dev).float()
+    periods = torch.tensor(data.selected_periods, device=dev).float()
+    bands = (torch.randn(10, generator=gen) * 10).to(dev)
+    args = (coords, angles, periods, bands, (1.0,),
+            (0.0, -1.0, 1.0, 0.5, -0.5), (0.0,), (H, W))
+    got = periodic_embed(*args)
+    want = periodic_embed_plain(*args)
+    want64 = periodic_embed_plain(*[a.double() if torch.is_tensor(a) else a
+                                    for a in args])
+    torch.cuda.synchronize()
+    if got.shape != (H * W, 1386):
+        fail(f'K1 output shape {tuple(got.shape)}')
+    err = judge([(got, want, want64)])
+    del want, want64
+    n_out = got.numel()
+    b_ms, b_by = bound_ms(coords.numel() * 4 + n_out * 4, n_out * 20)
+    return [dict(
+        name='periodic_embed', route='cuda',
+        source='npp_tpu_torch/csrc/periodic_embed.cu',
+        replaces='npp_tpu/nn/embedder.py:149 (TaskEmbedder.embed, XLA-fused; '
+                 'no pl.pallas_call in the repo)',
+        shape=[H * W, 1386], **err, ms=time_ms(lambda: periodic_embed(*args)),
+        plain_ms=time_ms(lambda: periodic_embed_plain(*args), iters=5),
+        bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
+        library_ms=None)]
+
+
+def check_k2(gen):
+    """K2 forward and backward at (59392, 512) and (59392, 256)."""
+    import torch
+    from npp_tpu_torch.kernels import snake
+    dev = torch.device('cuda')
+    m = 8192 + 2 * 160 * 160
+    errs = {}
+    for n in (512, 256):
+        h = torch.randn(m, n, generator=gen).to(dev)
+        b = (torch.rand(n, generator=gen) - 0.5).to(dev)
+        g = torch.randn(m, n, generator=gen).to(dev)
+        hk, bk = h.clone().requires_grad_(), b.clone().requires_grad_()
+        y = snake.bias_snake(hk, bk)
+        y.backward(g)
+        hp, bp = h.clone().requires_grad_(), b.clone().requires_grad_()
+        yp = snake.bias_snake_plain(hp, bp)
+        yp.backward(g)
+        hd, bd = h.double().requires_grad_(), b.double().requires_grad_()
+        yd = snake.bias_snake_plain(hd, bd)
+        yd.backward(g.double())
+        torch.cuda.synchronize()
+        for key, pairs in (('fwd', [(y, yp, yd)]),
+                           ('bwd', [(hk.grad, hp.grad, hd.grad),
+                                    (bk.grad, bp.grad, bd.grad)])):
+            e = judge(pairs)
+            errs[key] = merge(errs[key], e) if key in errs else e
+        if n == 512:
+            fwd_ms = time_ms(lambda: snake.snake_fwd_launch(h, b))
+            fwd_plain = time_ms(lambda: snake.bias_snake_plain(h, b))
+            bwd_ms = time_ms(lambda: snake.snake_bwd_launch(g, h, b))
+
+            def plain_bwd():
+                z = h + b
+                return g * (1.0 + torch.sin(2.0 * z))
+            bwd_plain = time_ms(plain_bwd)
+    numel = m * 512
+    out = []
+    # forward: h read, y written; backward: g and h read, dh written
+    for key, ms, plain_ms, n_bytes, ops in (
+            ('fwd', fwd_ms, fwd_plain, 2 * numel * 4, 4 * numel),
+            ('bwd', bwd_ms, bwd_plain, 3 * numel * 4, 5 * numel)):
+        b_ms, b_by = bound_ms(n_bytes, ops)
+        out.append(dict(
+            name=f'bias_snake_{key}', route='triton',
+            source='npp_tpu_torch/kernels/snake.py',
+            replaces='npp_tpu/nn/mlp.py:69 (act(TorchLinear), XLA-fused '
+                     'epilogue; no pl.pallas_call in the repo)',
+            shape=[m, 512], **errs[key], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
+            library_ms=None))
+    return out
+
+
+K4_SHAPES = [(8192, 3)] + [(6 * s * s, c) for s, c in
+                           ((160, 64), (80, 128), (40, 256), (20, 512),
+                            (10, 512))]
+
+
+def check_k4(gen):
+    """K4 forward and backward (dx, dalpha, dscale) at the pixel loss's and
+    each LPIPS layer's shape; timed at LPIPS layer 1 (153600, 64)."""
+    import torch
+    from npp_tpu_torch.kernels import robust_rho as rr
+    dev = torch.device('cuda')
+    errs = {}
+    for m, c in K4_SHAPES:
+        x = (torch.randn(m, c, generator=gen) * 0.2).to(dev)
+        alpha = (0.001 + 1.998 * torch.rand(c, generator=gen)).to(dev)
+        scale = (0.01 + torch.rand(c, generator=gen)).to(dev)
+        w = torch.ones(c, device=dev) if c == 3 else \
+            torch.rand(c, generator=gen).to(dev)
+        g = torch.randn(m, generator=gen).to(dev)
+        ins_k = [t.clone().requires_grad_() for t in (x, alpha, scale)]
+        ins_p = [t.clone().requires_grad_() for t in (x, alpha, scale)]
+        r = rr.rho_rows(*ins_k, w)
+        r.backward(g)
+        rp = rr.rho_rows_plain(*ins_p, w)
+        rp.backward(g)
+        ins_d = [t.double().requires_grad_() for t in (x, alpha, scale)]
+        rd = rr.rho_rows_plain(*ins_d, w.double())
+        rd.backward(g.double())
+        torch.cuda.synchronize()
+        for key, pairs in (('fwd', [(r, rp, rd)]),
+                           ('bwd', [(a.grad, b.grad, d.grad) for a, b, d in
+                                    zip(ins_k, ins_p, ins_d)])):
+            e = judge(pairs)
+            errs[key] = merge(errs[key], e) if key in errs else e
+        if (m, c) == (153600, 64):
+            fwd_ms = time_ms(lambda: rr.rho_fwd_launch(x, alpha, scale, w))
+            fwd_plain = time_ms(lambda: rr.rho_rows_plain(x, alpha, scale, w))
+            bwd_ms = time_ms(lambda: rr.rho_bwd_launch(g, x, alpha, scale, w))
+
+            def plain_bwd():
+                xs, a_, s_ = (t.detach().requires_grad_()
+                              for t in (x, alpha, scale))
+                return torch.autograd.grad(rr.rho_rows_plain(xs, a_, s_, w),
+                                           (xs, a_, s_), g)
+            bwd_plain = time_ms(plain_bwd)
+            tm, tc = m, c
+    out = []
+    # forward reads x and writes one value a row; backward reads x and g and
+    # writes dx (the per-channel partial sums are small)
+    for key, ms, plain_ms, n_bytes, ops in (
+            ('fwd', fwd_ms, fwd_plain, tm * tc * 4 + tm * 4, 30 * tm * tc),
+            ('bwd', bwd_ms, bwd_plain, 2 * tm * tc * 4 + tm * 4,
+             60 * tm * tc)):
+        b_ms, b_by = bound_ms(n_bytes, ops)
+        out.append(dict(
+            name=f'robust_rho_{key}', route='triton',
+            source='npp_tpu_torch/kernels/robust_rho.py',
+            replaces='npp_tpu/losses/robust.py:134 (nllfun per-element rho, '
+                     'XLA-fused; no pl.pallas_call in the repo)',
+            shape=[tm, tc], **errs[key], ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
+            library_ms=None))
+    return out
+
+
+def check_fit_step():
+    """One fit step with every loss on, the same parameters and injected
+    batch on the card (kernels) and on the CPU (plain versions): loss and
+    gradients agree. Small widths; f32 with TF32 off on both sides."""
+    import torch
+    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
+    from npp_tpu_torch.models.sampler import SOURCE_SAME, sample_patches
+    from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    cfg = replace(CompletionConfig(), netwidth=64, netdepth=6, N_rand=512,
+                  patch_num=1, num_real_patch_per_sample=2)
+    data = synthetic_data(0, 96, 128)
+    data.patch_size = 32
+    res = {}
+    gen = torch.Generator().manual_seed(3)
+    while True:     # a 'same' step, so the LPIPS-robust term is on
+        batch = sample_patches(gen, make_fit_consts(
+            cfg, data, 32, torch.device('cpu')).sampler, 1, 32, 2, 0.3)
+        if batch.source == SOURCE_SAME:
+            break
+    pix = torch.randint(0, 1000, (cfg.N_rand,), generator=gen)
+    for name in ('cpu', 'cuda'):
+        dev = torch.device(name)
+        comps = build_components(cfg, data, dev)
+        state = init_fit_state(cfg, comps.model, comps.percep, dev)
+        inj = (pix, type(batch)(*[t.to(dev) if torch.is_tensor(t) else t
+                                  for t in vars(batch).values()]))
+        loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, 1, 32,
+                                inject=inj)
+        loss, _ = loss_fn(state.params, comps.embedder,
+                          make_fit_consts(cfg, data, 32, dev), None)
+        loss.backward()
+        res[name] = (loss.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in
+                      state.params.named_parameters() if p.grad is not None})
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    l_err = rel(res['cuda'][0], res['cpu'][0])
+    g_err = max(rel(res['cuda'][1][k], v) for k, v in res['cpu'][1].items())
+    log(f'fit step card vs CPU: loss {float(res["cuda"][0]):.6f} vs '
+        f'{float(res["cpu"][0]):.6f} (rel {l_err:.2e}), worst gradient rel '
+        f'err {g_err:.2e} over {len(res["cpu"][1])} tensors')
+    # f32 on both sides; convolutions and reductions reassociate
+    if not (l_err < 1e-4 and g_err < 1e-2):
+        fail('fit step on the card disagrees with the CPU')
+
+
+def phase_main_path():
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.models.completion import run_completion
+    from npp_tpu_torch.utils.synthetic import H, W, synthetic_data
+    cfg = replace(CompletionConfig(), N_iters=21, i_testset=10, i_print=10)
+    data = synthetic_data(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    result, final, evals = run_completion(cfg, save=False, device='cuda',
+                                          data=data)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in result.history:
+        log(f"block ending at iter {h['iter']}: loss {h['loss']:.6g}, "
+            f"{h['ms_per_step']:.2f} ms/step")
+    for i, e in sorted(evals.items()):
+        log(f"eval@{i}: train_psnr {e['train_psnr']:.3f} val_psnr "
+            f"{e['val_psnr']:.3f}")
+    log(f"final: train_psnr {final['train_psnr']:.3f} val_psnr "
+        f"{final['val_psnr']:.3f} val_lpips {final['val_lpips']:.5f}")
+    log(f'main path {wall:.1f} s wall; peak memory allocated '
+        f'{peak / 2**30:.2f} GiB; launches {launches}')
+    numbers = [h['loss'] for h in result.history] + \
+        [final[k] for k in ('train_psnr', 'val_psnr', 'val_lpips')] + \
+        [e[k] for e in evals.values() for k in ('train_psnr', 'val_psnr')]
+    if not np.all(np.isfinite(numbers)):
+        fail(f'non-finite losses or metrics: {numbers}')
+    comp = final['pred_rgb_img_comp']
+    if comp.shape != (H, W, 3) or not np.all(np.isfinite(comp)):
+        fail(f'composite of shape {comp.shape} or not finite')
+    if sorted(evals) != [10, 20] or len(result.history) != 2:
+        fail(f'evals at {sorted(evals)}, {len(result.history)} logged blocks')
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        fail(f'kernels never launched on the main path: {missing}')
+    return launches, result.history, peak
+
+
+def main():
+    name, smi = phase_device()
+    import torch
+    phase_build()
+    gen = torch.Generator().manual_seed(0)
+    kernels = check_k1(gen) + check_k2(gen) + check_k4(gen)
+    for k in kernels:
+        log(f"{k['name']}: max abs diff from plain {k['max_abs_err']:.3e}; "
+            f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
+            f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e}); "
+            f"{k['ms']:.4f} ms vs plain {k['plain_ms']:.4f} ms, bound "
+            f"{k['bound_us']:.1f} us ({k['bound_by']})")
+    bad = [k['name'] for k in kernels
+           if not k['rel_err_vs_f64'] <= k['tol']]
+    if bad:
+        fail(f'kernels disagree with their plain versions: {bad}')
+    check_fit_step()
+    launches, history, peak = phase_main_path()
+    for k in kernels:
+        k['launches'] = launches[k['name']]
+    print(json.dumps({'kernels': kernels,
+                      'fit': {'ms_per_step': [h['ms_per_step']
+                                              for h in history],
+                              'peak_bytes': peak}}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': name,
+        'count': torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == '__main__':
+    main()

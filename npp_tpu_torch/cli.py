@@ -1,0 +1,76 @@
+"""Command-line entry point of the PyTorch port.
+
+Usage:
+  python -m npp_tpu_torch.cli complete --datadir D --basedir B [--device cpu] [overrides]
+
+Any CompletionConfig field can be overridden with --<field> <value>;
+booleans accept true/false. Runs on the card unless --device cpu is given.
+The search, segment and remap commands are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import Type
+
+from .config import CompletionConfig
+
+
+def _parse_value(field: dataclasses.Field, raw: str):
+    t = str(field.type)
+    if 'bool' in t:
+        return raw.lower() in ('1', 'true', 'yes', 'on')
+    if 'Tuple' in t or 'tuple' in t:  # before int/float: 'Tuple[int,...]'
+        return tuple(float(v) if '.' in v else int(v)
+                     for v in raw.strip('()').split(','))
+    if 'int' in t:
+        return int(raw)
+    if 'float' in t:
+        return float(raw)
+    return raw
+
+
+def build_config(cls: Type, argv):
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    overrides = {}
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if not arg.startswith('--'):
+            raise SystemExit(f'unexpected argument: {arg}')
+        key = arg[2:]
+        if key not in fields:
+            raise SystemExit(f'unknown option --{key} for {cls.__name__}')
+        if i + 1 >= len(argv):
+            raise SystemExit(f'--{key} requires a value')
+        overrides[key] = _parse_value(fields[key], argv[i + 1])
+        i += 2
+    return cls(**overrides)
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv or argv[0] in ('-h', '--help'):
+        print(__doc__)
+        return 0
+    cmd, rest = argv[0], argv[1:]
+    device = None
+    if '--device' in rest:
+        j = rest.index('--device')
+        device = rest[j + 1]
+        rest = rest[:j] + rest[j + 2:]
+    if cmd == 'complete':
+        from .models.completion import run_completion
+        _, final, _ = run_completion(build_config(CompletionConfig, rest),
+                                     device=device)
+        print({k: v for k, v in final.items() if not hasattr(v, 'shape')})
+    elif cmd in ('search', 'segment', 'remap'):
+        raise NotImplementedError(
+            f'{cmd} is not ported to npp_tpu_torch yet (see ROADMAP.md)')
+    else:
+        raise SystemExit(f'unknown command: {cmd}')
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,98 @@
+"""K1 wrapper: periodic + Fourier embedding (csrc/periodic_embed.cu).
+
+Replaces the XLA-fused `TaskEmbedder.embed` (npp_tpu/nn/embedder.py:87-162).
+Memory-bound: the output write is the whole cost (see the source's note).
+Forward only: coordinates carry no gradient while the warp field is off.
+
+A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
+through `periodic_embed_plain`, the same function in plain PyTorch.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from .build import check_cuda, load_library
+
+LAUNCHES = {'periodic_embed': 0}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = load_library('periodic_embed')
+    fn = lib.npp_periodic_embed
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, i, p, i, p, i, p, i, ctypes.c_longlong, i,
+                       ctypes.c_float, ctypes.c_float, p, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def embed_dims(n_bands: int, n_scales: int, n_offsets: int,
+               n_angle_offsets: int) -> Tuple[int, int]:
+    """(periodic channels P per proposal, output channels D per proposal)."""
+    p = 2 * (1 + n_scales * n_offsets * n_angle_offsets * 2)
+    return p, p * (1 + 2 * n_bands)
+
+
+def periodic_embed_plain(coords_yx: torch.Tensor, angles: torch.Tensor,
+                         periods: torch.Tensor, bands: Optional[torch.Tensor],
+                         freq_scales: Sequence[float],
+                         freq_offsets: Sequence[float],
+                         angle_offsets: Sequence[float],
+                         res: Tuple[int, int]) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: periodic_warp of each
+    proposal, Fourier re-encoded, proposal-major (embedder.py:149-162)."""
+    from ..nn.embedder import fourier_encode, periodic_warp
+    per = []
+    for k in range(angles.shape[0]):
+        p = periodic_warp(coords_yx, angles[k], periods[k], freq_scales,
+                          freq_offsets, angle_offsets, res,
+                          include_input=True)
+        per.append(p if bands is None else fourier_encode(p, bands))
+    return torch.cat(per, dim=-1)
+
+
+def periodic_embed(coords_yx: torch.Tensor, angles: torch.Tensor,
+                   periods: torch.Tensor, bands: Optional[torch.Tensor],
+                   freq_scales: Sequence[float], freq_offsets: Sequence[float],
+                   angle_offsets: Sequence[float],
+                   res: Tuple[int, int]) -> torch.Tensor:
+    """coords (N, 2) f32 (y, x) -> (N, K * D) f32. angles, periods (K, 2);
+    bands (F,) or None for the identity Fourier stage."""
+    if coords_yx.device.type == 'cpu':
+        return periodic_embed_plain(coords_yx, angles, periods, bands,
+                                    freq_scales, freq_offsets, angle_offsets,
+                                    res)
+    dev = coords_yx.device
+    if dev.type != 'cuda':
+        raise RuntimeError(f'periodic_embed: unsupported device {dev}')
+    coords = coords_yx.to(torch.float32).contiguous()
+    if coords.dim() != 2 or coords.shape[1] != 2:
+        raise ValueError(f'coords must be (N, 2), got {tuple(coords.shape)}')
+    k = angles.shape[0]
+    if angles.shape != (k, 2) or periods.shape != (k, 2):
+        raise ValueError('angles and periods must both be (K, 2)')
+
+    def vec(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
+
+    ang, per = vec(angles), vec(periods)
+    n_bands = 0 if bands is None else int(bands.shape[0])
+    bnd = vec(bands) if n_bands else torch.zeros(1, device=dev)
+    sc, off, aoff = vec(freq_scales), vec(freq_offsets), vec(angle_offsets)
+    _, d = embed_dims(n_bands, len(freq_scales), len(freq_offsets),
+                      len(angle_offsets))
+    n = coords.shape[0]
+    out = torch.empty((n, k * d), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = _lib().npp_periodic_embed(
+        coords.data_ptr(), ang.data_ptr(), per.data_ptr(), bnd.data_ptr(),
+        n_bands, sc.data_ptr(), len(freq_scales), off.data_ptr(),
+        len(freq_offsets), aoff.data_ptr(), len(angle_offsets), n, k,
+        float(res[0]), float(res[1]), out.data_ptr(), stream)
+    check_cuda(status, 'periodic_embed')
+    LAUNCHES['periodic_embed'] += 1
+    return out

@@ -1,0 +1,187 @@
+"""The per-image fit driver, a port of `npp_tpu/models/pipeline.py` for the
+completion task: build components -> staged fit (patch-size decay,
+pipeline.py:240-250) -> eval hooks at the i_testset cadence."""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, set_reference_precision
+from ..losses.contextual import ContextualLoss
+from ..losses.lpips import LPIPS
+from ..nn.embedder import TaskEmbedder, make_task_embedder
+from ..nn.mlp import NPPNet, NPPNetTop1
+from ..utils.pools import pad_pool_pow2
+from .loaders import TaskData
+from .sampler import build_sampler_consts
+from .trainer import (FitConsts, FitState, init_fit_state, make_fit_block,
+                      make_render)
+
+
+def check_slice(cfg) -> None:
+    """Options outside the port's first slice raise instead of silently
+    doing something else (ROADMAP.md lists them)."""
+    unported = {
+        'warp_field': cfg.warp_field,
+        'comp_heldout': cfg.comp_heldout,
+        "comp_snapshot='best'": cfg.comp_snapshot != 'last',
+        "comp_seam='residual'": cfg.comp_seam != 'none',
+        'use_style_loss': getattr(cfg, 'use_style_loss', False),
+    }
+    for name, on in unported.items():
+        if on:
+            raise NotImplementedError(
+                f'{name} is not ported to npp_tpu_torch yet (see ROADMAP.md)')
+
+
+@dataclasses.dataclass
+class Components:
+    embedder: TaskEmbedder
+    model: torch.nn.Module
+    percep: Optional[LPIPS]
+    contextual: Optional[ContextualLoss]
+
+
+def build_components(cfg, data: TaskData, device: torch.device) -> Components:
+    """Embedder (bands from a generator seeded with cfg.seed), MLP (nn.Linear
+    init under the same seed, without touching the global RNG) and the loss
+    towers, all on `device`."""
+    h, w = data.img.shape[:2]
+    gen = torch.Generator().manual_seed(cfg.seed)
+    embedder = make_task_embedder(cfg, np.asarray(data.selected_angles),
+                                  np.asarray(data.selected_periods), (h, w),
+                                  gen, device)
+    k = min(cfg.p_topk, len(data.selected_angles))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(cfg.seed)
+        if k > 1:
+            model = NPPNet(embedder.top1_dim,
+                           embedder.out_dim - embedder.top1_dim,
+                           depth=cfg.netdepth, width=cfg.netwidth,
+                           activation=cfg.activation)
+        else:
+            model = NPPNetTop1(embedder.top1_dim, depth=cfg.netdepth,
+                               width=cfg.netwidth, activation=cfg.activation)
+    percep = LPIPS(device, net='vgg') if cfg.use_perceptual_loss else None
+    contextual = ContextualLoss(device) if cfg.use_contextual_loss else None
+    return Components(embedder, model.to(device), percep, contextual)
+
+
+def make_fit_consts(cfg, data: TaskData, patch_size: int,
+                    device: torch.device) -> FitConsts:
+    pixel_mask = np.ones_like(data.mask)
+    sampler_mask = (data.mask * data.valid_mask)[..., 0]
+    sampler = build_sampler_consts(data.masked_img, sampler_mask, data.i_train,
+                                   data.i_val, data.selected_shifts,
+                                   patch_size, device)
+    pool, n = pad_pool_pow2(data.i_train, fill='first')
+    return FitConsts(
+        pixel_img=torch.as_tensor(data.masked_img, dtype=torch.float32,
+                                  device=device),
+        pixel_mask=torch.as_tensor(pixel_mask, dtype=torch.float32,
+                                   device=device),
+        pool_train=torch.as_tensor(pool, dtype=torch.long, device=device),
+        pool_train_n=max(n, 1), sampler=sampler)
+
+
+@dataclasses.dataclass
+class FitResult:
+    state: FitState
+    render: Callable
+    components: Components
+    history: List[Dict[str, float]]
+    wall_time_s: float
+    iters_per_sec: float
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def fit_image(cfg, data: TaskData,
+              eval_hook: Optional[Callable[[int, FitState, Callable], None]] = None,
+              log_every: Optional[int] = None, device=None,
+              checkpoint_dir: Optional[str] = None) -> FitResult:
+    """The reference's per-image training loop (NPP_completion/train.py:
+    133-264). Runs on the card unless device='cpu' is passed. The history
+    records, per log, the metrics and the wall ms per step of the block
+    that ended there (synchronised, eval excluded). Checkpoints are not
+    ported yet: a checkpoint_dir raises."""
+    if checkpoint_dir:
+        raise NotImplementedError(
+            'checkpoints are not ported to npp_tpu_torch yet (see ROADMAP.md)')
+    device = resolve_device(device)
+    check_slice(cfg)
+    if device.type == 'cuda':
+        set_reference_precision()
+    print(f'[fit] matmul_precision={cfg.matmul_precision!r} is not honoured '
+          f'yet: the MLP runs in float32 with TF32 off', flush=True)
+    comps = build_components(cfg, data, device)
+    state = init_fit_state(cfg, comps.model, comps.percep, device)
+    render = make_render(cfg, comps.embedder)
+    gen = torch.Generator().manual_seed(cfg.seed + 1)
+
+    patch_size = data.patch_size
+    patch_num = cfg.patch_num
+    n_decays = 0
+    # block size: the gcd of the event cadences, so eval/log boundaries fall
+    # between blocks (pipeline.py:157-163); below 8 steps, single steps
+    block = math.gcd(cfg.i_testset, log_every or cfg.i_testset)
+    use_blocks = block >= 8
+    stages: Dict = {}
+
+    def stage(ps, pn, blk):
+        key = (ps, pn, blk)
+        if key not in stages:
+            consts = make_fit_consts(cfg, data, ps, device)
+            stages[key] = make_fit_block(cfg, comps.embedder, consts,
+                                         comps.percep, comps.contextual, pn,
+                                         ps, blk)
+        return stages[key]
+
+    history: List[Dict[str, float]] = []
+    _sync(device)
+    t0 = time.time()
+    fit_s = 0.0
+
+    def post_step(i, metrics, ms_per_step):
+        if log_every and i % log_every == 0:
+            m = {k_: float(v) for k_, v in metrics.items()}
+            m['iter'] = i
+            m['ms_per_step'] = ms_per_step
+            history.append(m)
+            print('[completion] iter %d ' % i + ' '.join(
+                f'{k_}={v:.4g}' for k_, v in m.items() if k_ != 'iter'),
+                flush=True)
+        if i % cfg.i_testset == 0 and i > 0 and eval_hook is not None:
+            eval_hook(i, state, render)
+
+    i = 1
+    while i < cfg.N_iters:
+        due = (i - 1) // cfg.patch_size_decay if i > 1 else 0
+        if due > n_decays and patch_size > 31 and cfg.N_iters - i > 10:
+            while n_decays < due and patch_size > 31:
+                n_decays += 1
+                patch_size //= 2
+                patch_num *= 2
+        n = block if (use_blocks and cfg.N_iters - i >= block and
+                      (i - 1) % block == 0) else 1
+        tb = time.time()
+        metrics = stage(patch_size, patch_num, n)(state, gen)
+        _sync(device)
+        dt = time.time() - tb
+        fit_s += dt
+        i += n
+        post_step(i - 1, metrics, 1e3 * dt / n)
+    _sync(device)
+    wall = time.time() - t0
+    iters = cfg.N_iters - 1
+    return FitResult(state=state, render=render, components=comps,
+                     history=history, wall_time_s=wall,
+                     iters_per_sec=iters / max(fit_s, 1e-9))

@@ -1,0 +1,238 @@
+"""Per-image fit engine: the loss, one Adam step, a block of steps, the render.
+
+Port of `npp_tpu/models/trainer.py` for the completion task. What differs
+from the JAX package, and why:
+ - PyTorch runs eagerly, so a "block" is a Python loop of steps; the canvas
+   embedding table (cfg.embed_table) is still built once per block by K1
+   and gathered per step, as the JAX scan-block does (trainer.py:285-327).
+ - The perceptual term runs only on 'same' steps (trainer.py:223-224). In
+   JAX its latents then get zero gradients and optax Adam still moves them
+   by momentum; torch.optim.Adam skips a parameter whose .grad is None and
+   does not advance its moments, so every step hands Adam an explicit zero
+   gradient for each parameter the loss did not reach.
+ - The learning rate is set on the optimizer before each step: step k
+   (0-based count of updates so far) uses lr0 * 0.1^(k / (lrate_decay*100)),
+   optax's schedule(count) convention (trainer.py:72-73).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..losses.contextual import ContextualLoss
+from ..losses.lpips import LPIPS
+from ..losses.pixel import img2mse
+from ..losses.robust import adaptive_init
+from ..nn.embedder import TaskEmbedder, make_embedding_table
+from ..nn.mlp import render_activation
+from .sampler import (SOURCE_SAME, SOURCE_VAL, PatchBatch, SamplerConsts,
+                      sample_patches)
+
+RENDER_CHUNK = 1 << 16
+
+
+@dataclass
+class FitConsts:
+    """Device-resident per-image constants for the fit."""
+
+    pixel_img: torch.Tensor     # (H, W, 3) gt source for the pixel loss
+    pixel_mask: torch.Tensor    # (H, W, 1) weights for the pixel loss
+    pool_train: torch.Tensor    # (Nt, 2) long padded train-coord pool
+    pool_train_n: int
+    sampler: SamplerConsts
+
+
+class FitParams(nn.Module):
+    """Everything Adam trains: the MLP and the adaptive-loss latents."""
+
+    def __init__(self, mlp: nn.Module, adaptive_pix: nn.Module,
+                 adaptive_percep: Optional[nn.ModuleList] = None):
+        super().__init__()
+        self.mlp = mlp
+        self.adaptive_pix = adaptive_pix
+        self.adaptive_percep = adaptive_percep
+
+
+@dataclass
+class FitState:
+    params: FitParams
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_schedule(cfg) -> Callable[[int], float]:
+    return lambda step: cfg.lrate * (0.1 ** (step / (cfg.lrate_decay * 100.0)))
+
+
+def init_fit_state(cfg, model: nn.Module, percep: Optional[LPIPS],
+                   device: torch.device) -> FitState:
+    adaptive_percep = percep.init_adaptive() \
+        if percep is not None and cfg.use_adaptive_perceptual_loss else None
+    params = FitParams(model, adaptive_init(3), adaptive_percep).to(device)
+    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    return FitState(params, opt, 0)
+
+
+def build_loss_fn(cfg, percep: Optional[LPIPS],
+                  contextual: Optional[ContextualLoss], patch_num: int,
+                  patch_size: int,
+                  inject: Optional[Tuple[torch.Tensor, PatchBatch]] = None):
+    """Returns loss_fn(params, embedder, consts, gen) -> (loss, metrics).
+
+    inject: a fixed (pixel indices (N_rand,), PatchBatch) used instead of
+    drawing from `gen` — the tests hand both packages the same batch."""
+    topk = cfg.num_real_patch_per_sample
+    n_rand = cfg.N_rand
+    use_cx = cfg.use_contextual_loss and contextual is not None
+    use_perc = cfg.use_perceptual_loss and percep is not None
+
+    def loss_fn(params: FitParams, embedder, consts: FitConsts,
+                gen: Optional[torch.Generator]):
+        dev = consts.pixel_img.device
+        if inject is not None:
+            pix_idx, batch = inject
+            pix_idx = pix_idx.to(dev)
+        else:
+            batch = sample_patches(gen, consts.sampler, patch_num, patch_size,
+                                   topk, cfg.invalid_ratio,
+                                   cfg.no_reg_sampling)
+            pix_idx = torch.randint(0, consts.pool_train_n, (n_rand,),
+                                    generator=gen).to(dev)
+
+        # ---- pixel batch (reference: NPP_completion/train.py:172-178)
+        pix_coords = consts.pool_train[pix_idx]
+        gt_rgb = consts.pixel_img[pix_coords[:, 0], pix_coords[:, 1]]
+        gt_mask = consts.pixel_mask[pix_coords[:, 0], pix_coords[:, 1]]
+
+        # ---- one MLP forward over pixels + patch pixels
+        all_coords = torch.cat([pix_coords, batch.fake_coords.reshape(-1, 2)], 0)
+        raw = params.mlp(embedder.embed(all_coords.to(torch.float32)))
+        pred = render_activation(raw, cfg.normalize_type)
+        pred_pix = pred[:n_rand]
+        pred_patch = pred[n_rand:].reshape(patch_num, patch_size, patch_size, 3)
+
+        metrics: Dict[str, torch.Tensor] = {}
+        loss = torch.zeros((), device=dev)
+        if not cfg.no_pix_loss:
+            pix_loss = img2mse(pred_pix, gt_rgb, cfg.loss_type,
+                               params.adaptive_pix, gt_mask,
+                               scale_lo=cfg.adaptive_scale_lo)
+            loss = loss + pix_loss
+            metrics['pixel'] = pix_loss.detach()
+
+        # ---- NHWC patch tensors, (P*K, S, S, C)
+        pk = patch_num * topk
+        s = patch_size
+
+        def per_slot(t):   # (P, ...) -> (P*K, ...), each repeated K times
+            return t[:, None].expand((patch_num, topk) + t.shape[1:]
+                                     ).reshape((pk,) + t.shape[1:])
+
+        pred_t = per_slot(pred_patch)
+        real_rgb = batch.real_rgb.reshape(pk, s, s, 3)
+        real_mask = batch.real_mask.reshape(pk, s, s, 1)
+        fake_rgb = per_slot(batch.fake_rgb)
+        fake_mask = per_slot(batch.fake_mask)
+        valid = batch.valid.reshape(pk)
+        weight = batch.weight.reshape(pk) if cfg.use_patch_weight else None
+
+        # comp-paste for 'val' batches (reference: train.py:228-236)
+        if cfg.use_comp and batch.source == SOURCE_VAL:
+            cx_pred = fake_rgb * fake_mask + pred_t * (1.0 - fake_mask)
+        else:
+            cx_pred = pred_t
+
+        if use_cx:
+            cx = contextual(cx_pred * real_mask, real_rgb * real_mask,
+                            weight=weight, valid=valid)
+            loss = loss + cx * cfg.contextual_weight
+            metrics['contextual'] = cx.detach()
+
+        if use_perc:
+            # only on 'same' batches (reference: train.py:239-251)
+            if batch.source == SOURCE_SAME:
+                per = percep(pred_t * real_mask, fake_rgb * real_mask,
+                             use_robust=cfg.use_adaptive_perceptual_loss,
+                             adaptive=params.adaptive_percep,
+                             normalize=True).reshape(pk)
+                if weight is not None:
+                    perc = torch.sum(per * weight * valid)
+                else:
+                    v = valid.to(per.dtype)
+                    perc = torch.sum(per * v) / torch.clamp(v.sum(), min=1.0)
+                loss = loss + perc * cfg.perceptual_weight
+            else:
+                perc = torch.zeros((), device=dev)
+            metrics['perceptual'] = perc.detach()
+
+        metrics['source'] = torch.tensor(float(batch.source))
+        return loss, metrics
+
+    return loss_fn
+
+
+def fit_step(state: FitState, loss_fn, embedder, consts: FitConsts,
+             gen: Optional[torch.Generator], schedule) -> Dict[str, torch.Tensor]:
+    """One Adam step. Every parameter gets a gradient, zero where the loss
+    did not reach it this step (see the module note)."""
+    for group in state.optimizer.param_groups:
+        group['lr'] = schedule(state.step)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, metrics = loss_fn(state.params, embedder, consts, gen)
+    loss.backward()
+    for p in state.params.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    state.optimizer.step()
+    state.step += 1
+    metrics['loss'] = loss.detach()
+    return metrics
+
+
+def uses_table(cfg, embedder, block: int) -> bool:
+    """cfg.embed_table: gather from a per-block canvas table; pointless for
+    tiny blocks (trainer.py:295-297)."""
+    return (cfg.embed_table in ('float32', 'bfloat16') and block >= 8 and
+            isinstance(embedder, TaskEmbedder))
+
+
+def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
+                   patch_num: int, patch_size: int, block: int):
+    """run_block(state, gen) -> last step's metrics, after `block` steps.
+    With cfg.embed_table the canvas embedding is built once per block."""
+    loss_fn = build_loss_fn(cfg, percep, contextual, patch_num, patch_size)
+    schedule = make_schedule(cfg)
+    use_table = uses_table(cfg, embedder, block)
+
+    def run_block(state: FitState, gen: torch.Generator):
+        emb = make_embedding_table(embedder) if use_table else embedder
+        metrics = None
+        for _ in range(block):
+            metrics = fit_step(state, loss_fn, emb, consts, gen, schedule)
+        return metrics
+
+    return run_block
+
+
+def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
+    """Chunked full-frame renderer (replaces the reference's chunk=20000
+    eval loops, NPP_completion/train.py:277-308): render(params, h, w)
+    -> (H, W, 3)."""
+
+    @torch.no_grad()
+    def render(params: FitParams, h: int, w: int) -> torch.Tensor:
+        dev = embedder.angles.device
+        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(w, device=dev), indexing='ij')
+        coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+        out = [render_activation(params.mlp(embedder.embed(c)),
+                                 cfg.normalize_type)
+               for c in coords.split(chunk)]
+        return torch.cat(out, 0).reshape(h, w, 3)
+
+    return render
+

@@ -1,0 +1,41 @@
+"""The flagship synthetic completion example, made from a seed with no PNG IO.
+
+A copy of `bench.py::_synthetic_data` (bench.py:47-68): a 384x512
+near-periodic image with an 80x100 hole and three detected lattices, so the
+main path runs at the reference's default shapes (patch size 160, 1386
+embedding channels) on any machine.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..models.loaders import TaskData
+
+H, W = 384, 512
+PATCH_SIZE = 160
+TOPK = 3
+
+
+def synthetic_data(seed: int = 0, h: int = H, w: int = W) -> TaskData:
+    """The example at (h, w); the hole scales with the canvas (bench.py's
+    80x100 hole at the default size)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
+    img = np.stack([
+        0.5 + 0.4 * np.sin(2 * np.pi * yy / 48.0) * np.cos(2 * np.pi * xx / 56.0),
+        0.5 + 0.3 * np.cos(2 * np.pi * (yy / 48.0 + xx / 56.0)),
+        0.5 + 0.2 * np.sin(2 * np.pi * xx / 56.0)], -1)
+    img += rng.randn(h, w, 3) * 0.02
+    img = np.clip(img, 0, 1)
+    mask = np.ones((h, w, 1))
+    mask[150 * h // H:230 * h // H, 200 * w // W:300 * w // W] = 0
+    valid = np.ones((h, w, 1))
+    train = np.stack(np.nonzero((mask * valid)[..., 0]), 1)
+    val = np.stack(np.nonzero(((1 - mask) * valid)[..., 0]), 1)
+    shifts = [[[56.0, 0.0], [0.0, 48.0]]] * TOPK
+    angles = [[90.0, 180.0]] * TOPK
+    periods = [[48.0, 56.0], [24.0, 28.0], [96.0, 112.0]]
+    return TaskData(img=img, masked_img=img * mask, mask=mask,
+                    valid_mask=valid, i_train=train, i_val=val,
+                    selected_shifts=shifts, selected_angles=angles,
+                    selected_periods=periods, patch_size=PATCH_SIZE)

@@ -19,3 +19,10 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips inside the test without one "
+        "(on the card: `python -m pytest --noconftest -m cuda "
+        "tests/test_torch_kernels.py`)")

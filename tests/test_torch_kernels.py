@@ -1,0 +1,123 @@
+"""The port's kernel wrappers. On the CPU a wrapper takes its plain version
+and launches nothing; the tests marked `cuda` hold each kernel to its plain
+version on the card, and skip inside the test without one. This file
+imports no JAX, so on the card's machine it runs without tests/conftest.py:
+`python -m pytest --noconftest -m cuda tests/test_torch_kernels.py`."""
+import numpy as np
+import pytest
+import torch
+
+from npp_tpu_torch.kernels import launch_counts, periodic_embed, reset_launches
+from npp_tpu_torch.kernels import robust_rho as rr
+from npp_tpu_torch.kernels import snake
+
+OFFSETS = (0.0, -1.0, 1.0, 0.5, -0.5)
+
+
+def _embed_args(device, n=300, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    coords = torch.stack([torch.randint(0, 96, (n,), generator=gen),
+                          torch.randint(0, 128, (n,), generator=gen)],
+                         -1).float()
+    angles = torch.tensor([[90.0, 180.0], [10.0, 100.0], [45.0, 135.0]])
+    periods = torch.tensor([[24.0, 28.0], [12.0, 14.5], [48.0, 56.0]])
+    bands = torch.randn(10, generator=gen) * 10
+    return tuple(t.to(device) for t in (coords, angles, periods, bands)) + (
+        (1.0,), OFFSETS, (0.0,), (96, 128))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda')
+
+
+def test_wrappers_take_the_plain_version_on_the_cpu():
+    reset_launches()
+    args = _embed_args('cpu')
+    np.testing.assert_array_equal(
+        periodic_embed.periodic_embed(*args).numpy(),
+        periodic_embed.periodic_embed_plain(*args).numpy())
+    h, b = torch.randn(7, 5), torch.randn(5)
+    assert torch.equal(snake.bias_snake(h, b), snake.bias_snake_plain(h, b))
+    x, a, s, w = torch.randn(9, 4), torch.rand(4) + 0.5, torch.rand(4) + 0.1, \
+        torch.rand(4)
+    assert torch.equal(rr.rho_rows(x, a, s, w), rr.rho_rows_plain(x, a, s, w))
+    assert not any(launch_counts().values())
+
+
+def test_embed_dims_match_the_config():
+    from npp_tpu_torch.config import (CompletionConfig, nerf_embed_dim,
+                                      periodic_embed_dim)
+    cfg = CompletionConfig()
+    p, d = periodic_embed.embed_dims(cfg.multires, len(cfg.freq_scales),
+                                     len(cfg.freq_offsets),
+                                     len(cfg.angle_offsets))
+    assert p == periodic_embed_dim(cfg, include_input=True) == 22
+    assert d == p * nerf_embed_dim(cfg, 1) == 462
+
+
+@pytest.mark.cuda
+def test_k1_matches_plain_on_the_card():
+    """Same f32 operations in the same order (no FMA contraction, floored
+    modulo, precise sinf/cosf): within 1e-5 absolute."""
+    dev = _card()
+    for bands in (True, False):
+        args = list(_embed_args(dev, n=5000))
+        if not bands:
+            args[3] = None
+        before = launch_counts()['periodic_embed']
+        got = periodic_embed.periodic_embed(*args)
+        want = periodic_embed.periodic_embed_plain(*args)
+        torch.cuda.synchronize()
+        assert launch_counts()['periodic_embed'] == before + 1
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def _assert_no_worse_than_plain(fn, plain, inputs, consts, g):
+    """Run the kernel's wrapper, its plain version in f32 and the plain
+    version in float64 on the same inputs, forward and backward. Sums run
+    in another order in the kernel, and some terms cancel in f32 in both,
+    so both are held to the float64 result: the kernel's error, relative
+    to each output's largest magnitude, at most twice the f32 plain
+    version's own, or 1e-5."""
+    outs = []
+    for f, dt in ((fn, torch.float32), (plain, torch.float32),
+                  (plain, torch.float64)):
+        ins = [t.to(dt, copy=True).requires_grad_() for t in inputs]
+        y = f(*ins, *[c.to(dt) for c in consts])
+        y.backward(g.to(dt))
+        outs.append([y.detach()] + [t.grad for t in ins])
+    for i, (got, p32, ref) in enumerate(zip(*outs)):   # output, grads
+        scale = float(ref.abs().max())
+        k_err = float((got.double() - ref).abs().max()) / scale
+        p_err = float((p32.double() - ref).abs().max()) / scale
+        assert k_err <= max(2 * p_err, 1e-5), (i, k_err, p_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [512, 256, 3])
+def test_k2_forward_and_backward_match_plain_on_the_card(n):
+    dev = _card()
+    gen = torch.Generator().manual_seed(n)
+    h = torch.randn(4099, n, generator=gen).to(dev)
+    b = torch.randn(n, generator=gen).to(dev)
+    g = torch.randn(4099, n, generator=gen).to(dev)
+    _assert_no_worse_than_plain(snake.bias_snake, snake.bias_snake_plain,
+                                (h, b), (), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,c', [(8192, 3), (6000, 64), (1500, 512)])
+def test_k4_forward_and_backward_match_plain_on_the_card(m, c):
+    """Alpha over the whole adaptive range (0.001, 1.999)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(c)
+    x = (torch.randn(m, c, generator=gen) * 0.2).to(dev)
+    alpha = (0.001 + 1.998 * torch.rand(c, generator=gen)).to(dev)
+    scale = (0.01 + torch.rand(c, generator=gen)).to(dev)
+    w = torch.rand(c, generator=gen).to(dev)
+    g = torch.randn(m, generator=gen).to(dev)
+    _assert_no_worse_than_plain(rr.rho_rows, rr.rho_rows_plain,
+                                (x, alpha, scale), (w,), g)
