@@ -50,12 +50,14 @@ class BaseConfig:
     canvas_override: Tuple[int, int] = ()  # ignored by the port
     compile_ahead: bool = True          # ignored by the port: nothing is
                                         # compiled ahead in eager PyTorch
-    embed_table: str = "float32"        # '' | 'float32': build the canvas
-                                        # embedding table once per block of
-                                        # steps and gather rows per step
-                                        # ('bfloat16' is read as 'float32')
-    embed_table_max_mb: int = 2048      # ignored by the port (a TPU HBM guard)
-    embed_table_degrade: bool = False   # ignored by the port
+    embed_table: str = "float32"        # '' | 'float32' | 'bfloat16': build
+                                        # the canvas embedding table in this
+                                        # dtype once per block of steps and
+                                        # gather rows per step
+    embed_table_max_mb: int = 2048      # no table (K1 on the fly) when it
+                                        # would exceed this many MB
+    embed_table_degrade: bool = False   # a bf16 table where an f32 one
+                                        # would exceed embed_table_max_mb
     aot_cache_dir: str = ""             # ignored by the port (JAX executable
                                         # cache)
     robust_layout: str = "auto"         # ignored by the port: 'nc' and 'cn'

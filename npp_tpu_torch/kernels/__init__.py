@@ -2,7 +2,8 @@
 
 Every wrapper adds one to its entry in its module's LAUNCHES where it
 launches its kernel, and nowhere else, so a run can show that it went
-through the kernels.
+through the kernels. An entry names the kernel, or the kernel and the shape
+it ran at ('robust_rho_bwd[153600x64]').
 """
 from typing import Dict
 
@@ -12,8 +13,16 @@ _MODULES = (periodic_embed, snake, robust_rho)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count, by kernel name."""
-    return {k: v for mod in _MODULES for k, v in mod.LAUNCHES.items()}
+    """Every entry's launch count, and for entries by shape also their sum
+    under the kernel's name."""
+    counts: Dict[str, int] = {}
+    for mod in _MODULES:
+        for k, v in mod.LAUNCHES.items():
+            counts[k] = v
+            name = k.split('[')[0]
+            if name != k:
+                counts[name] = counts.get(name, 0) + v
+    return counts
 
 
 def reset_launches() -> None:

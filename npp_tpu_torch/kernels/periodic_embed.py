@@ -1,8 +1,10 @@
 """K1 wrapper: periodic + Fourier embedding (csrc/periodic_embed.cu).
 
-Replaces the XLA-fused `TaskEmbedder.embed` (npp_tpu/nn/embedder.py:87-162).
-Memory-bound: the output write is the whole cost (see the source's note).
-Forward only: coordinates carry no gradient while the warp field is off.
+Replaces the XLA-fused `TaskEmbedder.embed` (npp_tpu/nn/embedder.py:87-162)
+and, written in bfloat16, `make_embedding_table`'s `.astype(jnp.bfloat16)`
+of it. Memory-bound: the output write is the whole cost (see the source's
+note). Forward only: coordinates carry no gradient while the warp field is
+off.
 
 A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
 through `periodic_embed_plain`, the same function in plain PyTorch.
@@ -10,13 +12,15 @@ through `periodic_embed_plain`, the same function in plain PyTorch.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .build import check_cuda, load_library
 
-LAUNCHES = {'periodic_embed': 0}
+LAUNCHES = {'periodic_embed': 0, 'periodic_embed_bf16': 0}
+OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _lib() -> ctypes.CDLL:
@@ -25,9 +29,17 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, i, p, i, p, i, p, i, ctypes.c_longlong, i,
-                       ctypes.c_float, ctypes.c_float, p, p]
+                       ctypes.c_float, ctypes.c_float, p, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _device_vector(values: Tuple[float, ...], dev: torch.device
+                   ) -> torch.Tensor:
+    """A tuple of the config as an f32 vector on `dev`, copied once rather
+    than on every launch."""
+    return torch.tensor(values, dtype=torch.float32, device=dev)
 
 
 def embed_dims(n_bands: int, n_scales: int, n_offsets: int,
@@ -42,9 +54,11 @@ def periodic_embed_plain(coords_yx: torch.Tensor, angles: torch.Tensor,
                          freq_scales: Sequence[float],
                          freq_offsets: Sequence[float],
                          angle_offsets: Sequence[float],
-                         res: Tuple[int, int]) -> torch.Tensor:
+                         res: Tuple[int, int],
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: periodic_warp of each
-    proposal, Fourier re-encoded, proposal-major (embedder.py:149-162)."""
+    proposal, Fourier re-encoded, proposal-major (embedder.py:149-162),
+    computed in the inputs' dtype and rounded to `out_dtype`."""
     from ..nn.embedder import fourier_encode, periodic_warp
     per = []
     for k in range(angles.shape[0]):
@@ -52,20 +66,24 @@ def periodic_embed_plain(coords_yx: torch.Tensor, angles: torch.Tensor,
                           freq_offsets, angle_offsets, res,
                           include_input=True)
         per.append(p if bands is None else fourier_encode(p, bands))
-    return torch.cat(per, dim=-1)
+    return torch.cat(per, dim=-1).to(out_dtype)
 
 
 def periodic_embed(coords_yx: torch.Tensor, angles: torch.Tensor,
                    periods: torch.Tensor, bands: Optional[torch.Tensor],
                    freq_scales: Sequence[float], freq_offsets: Sequence[float],
                    angle_offsets: Sequence[float],
-                   res: Tuple[int, int]) -> torch.Tensor:
-    """coords (N, 2) f32 (y, x) -> (N, K * D) f32. angles, periods (K, 2);
-    bands (F,) or None for the identity Fourier stage."""
+                   res: Tuple[int, int],
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """coords (N, 2) f32 (y, x) -> (N, K * D) in out_dtype (float32 or
+    bfloat16, computed in f32 and rounded to nearest even). angles, periods
+    (K, 2); bands (F,) or None for the identity Fourier stage."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f'periodic_embed writes {OUT_DTYPES}, not {out_dtype}')
     if coords_yx.device.type == 'cpu':
         return periodic_embed_plain(coords_yx, angles, periods, bands,
                                     freq_scales, freq_offsets, angle_offsets,
-                                    res)
+                                    res, out_dtype)
     dev = coords_yx.device
     if dev.type != 'cuda':
         raise RuntimeError(f'periodic_embed: unsupported device {dev}')
@@ -77,22 +95,25 @@ def periodic_embed(coords_yx: torch.Tensor, angles: torch.Tensor,
         raise ValueError('angles and periods must both be (K, 2)')
 
     def vec(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev).contiguous()
+        if not torch.is_tensor(v):      # a tuple of the config: copied once
+            return _device_vector(tuple(float(x) for x in v), dev)
+        return v.to(device=dev, dtype=torch.float32).contiguous()
 
     ang, per = vec(angles), vec(periods)
     n_bands = 0 if bands is None else int(bands.shape[0])
-    bnd = vec(bands) if n_bands else torch.zeros(1, device=dev)
+    bnd = vec(bands) if n_bands else _device_vector((0.0,), dev)
     sc, off, aoff = vec(freq_scales), vec(freq_offsets), vec(angle_offsets)
     _, d = embed_dims(n_bands, len(freq_scales), len(freq_offsets),
                       len(angle_offsets))
     n = coords.shape[0]
-    out = torch.empty((n, k * d), dtype=torch.float32, device=dev)
+    out = torch.empty((n, k * d), dtype=out_dtype, device=dev)
+    bf16 = out_dtype == torch.bfloat16
     stream = torch.cuda.current_stream(dev).cuda_stream
     status = _lib().npp_periodic_embed(
         coords.data_ptr(), ang.data_ptr(), per.data_ptr(), bnd.data_ptr(),
         n_bands, sc.data_ptr(), len(freq_scales), off.data_ptr(),
         len(freq_offsets), aoff.data_ptr(), len(angle_offsets), n, k,
-        float(res[0]), float(res[1]), out.data_ptr(), stream)
+        float(res[0]), float(res[1]), out.data_ptr(), int(bf16), stream)
     check_cuda(status, 'periodic_embed')
-    LAUNCHES['periodic_embed'] += 1
+    LAUNCHES['periodic_embed_bf16' if bf16 else 'periodic_embed'] += 1
     return out

@@ -1,8 +1,9 @@
-"""K4: row-wise weighted Barron rho, Triton.
+"""K4: row-wise weighted Barron rho; forward in Triton, backward in CUDA C++
+(csrc/robust_rho_bwd.cu).
 
 Replaces the per-element rho of `nllfun` (npp_tpu/losses/robust.py:63-81,
 134-138) that XLA fused into the adaptive pixel loss (losses/pixel.py) and
-the LPIPS robust path (losses/lpips.py):
+the LPIPS robust path (losses/lpips.py), and its backward:
 
     r[m] = sum_c w_c * rho(x[m, c], alpha_c, s_c)
 
@@ -11,15 +12,13 @@ alpha_safe. Adaptive alpha lies in (0.001, 1.999), where that branch is the
 whole function. The per-channel constant log s_c + log Z(alpha_c) and the
 latent -> (alpha, s) maps stay plain torch with autograd (losses/robust.py).
 
-Bound: memory. The forward reads x (M, C) once and writes r (M,); the
-backward reads x and g and writes dx, plus per-channel partial sums of
-dalpha and ds. Design: a (BLOCK_M, BLOCK_C) tile per program with the whole
-channel row in registers, so the channel sum is a register reduction; the
-backward writes one row of partial dalpha/ds per program and torch sums the
-(programs, C) partials (deterministic, no atomics). The dalpha terms are
-computed and summed in float64 (see the kernel): they cancel badly in f32
-for small alpha, and the extra arithmetic is small beside the memory
-traffic.
+Bound: memory. The forward reads x (M, C) once and writes r (M,): a
+(BLOCK_M, BLOCK_C) tile per program with the whole channel row in
+registers, so the channel sum is a register reduction. The backward reads
+x and g and writes dx, and sums dalpha and ds per channel on the device in
+a fixed order (see the source's note). Its alpha derivative is computed in
+f32 in forms without the cancellation of the direct one;
+`rho_bwd_plain` is the same arithmetic in PyTorch, line by line.
 
 A CUDA tensor goes through the kernels or the call raises; a CPU tensor goes
 through `rho_rows_plain` with autograd.
@@ -27,19 +26,22 @@ through `rho_rows_plain` with autograd.
 (No `from __future__ import annotations` here: Triton reads the
 `tl.constexpr` annotations of the jitted kernels as objects.)
 """
+import collections
+import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .build import triton_setup
+from .build import check_cuda, load_library, triton_setup
 
-LAUNCHES = {'robust_rho_fwd': 0, 'robust_rho_bwd': 0}
+# launches by kernel and shape, keyed 'robust_rho_fwd[MxC]'
+LAUNCHES = collections.Counter()
 F32_EPS = float(np.finfo(np.float32).eps)
 
-# Set at the first launch (_kernels); the jitted kernels read them as
+# Set at the first launch (_kernels); the jitted kernel reads them as
 # module globals.
-triton = tl = tld = _terms = None
+triton = tl = tld = None
 
 
 def rho_otherwise(x: torch.Tensor, alpha: torch.Tensor,
@@ -59,20 +61,68 @@ def rho_rows_plain(x: torch.Tensor, alpha: torch.Tensor, scale: torch.Tensor,
     return torch.sum(rho_otherwise(x, alpha, scale) * w, dim=-1)
 
 
+def _phi_poly(t: torch.Tensor) -> torch.Tensor:
+    """phi(t) / t^2 = sum_{n>=2} (n-1) t^(n-2) / n!, phi(t) = t e^t - expm1(t)."""
+    p = torch.full_like(t, 1.0 / 403200.0)
+    for coef in (1 / 45360, 1 / 5760, 1 / 840, 1 / 144, 1 / 30, 1 / 8, 1 / 3,
+                 0.5):
+        p = p * t + coef
+    return p
+
+
+def rho_bwd_plain(g: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
+                  scale: torch.Tensor, w: torch.Tensor):
+    """The backward kernel's arithmetic in PyTorch, line by line: g (M,),
+    x (M, C); alpha, scale, w (C,) -> (dx (M, C), dalpha (C,), dscale (C,)),
+    the gradient of rho_rows_plain. The alpha derivative avoids the direct
+    form's cancellation (the forms are derived in csrc/robust_rho_bwd.cu);
+    off the interior of (0, 2) it is the direct form through the clamps."""
+    a, eps = alpha, F32_EPS
+    b = torch.clamp(torch.abs(a - 2.0), min=eps)
+    asafe = torch.where(a >= 0, 1.0, -1.0) * torch.clamp(torch.abs(a), min=eps)
+    inv_b, inv_a, inv_s = 1.0 / b, 1.0 / asafe, 1.0 / scale
+    z = x * inv_s
+    sq = z * z
+    q = sq * inv_b
+    u = 1.0 + q
+    L = torch.log1p(q)
+    # interior of (0, 2): one expm1 for both forms
+    interior = (a > eps) & (2.0 - a > eps)
+    lo = a < 1.0
+    t = 0.5 * a * L
+    em1 = torch.expm1(torch.where(lo, t, -0.5 * b * L))
+    # 0 < alpha < 1
+    pw = 1.0 + em1
+    e_lo = pw * (1.0 / u)
+    two_phi_a2 = torch.where(t < 0.5, 0.5 * L * L * _phi_poly(t),
+                             2.0 * (t * pw - em1) * inv_a * inv_a)
+    da_lo = two_phi_a2 - 0.5 * L * pw + 0.5 * e_lo * q
+    # 1 <= alpha < 2
+    e_hi = 1.0 + em1
+    da_hi = (-0.5 * e_hi * sq * (2.0 + a) - 2.0 * em1) * inv_a * inv_a + \
+        (b + sq) * e_hi * L * (0.5 * inv_a)
+    # the clamps and alpha outside (0, 2): the direct terms
+    em1_d = torch.expm1(t)
+    pw_d = 1.0 + em1_d
+    am2 = a - 2.0
+    dbeta = torch.where(am2 > eps, 1.0, torch.where(am2 < -eps, -1.0, 0.0))
+    dasafe = torch.where(torch.abs(a) > eps, 1.0, 0.0)
+    dcoef = (dbeta * (1.0 / inv_a) - b * dasafe) * inv_a * inv_a
+    dpw = pw_d * (0.5 * L - 0.5 * a * q * inv_b * dbeta / u)
+    da_d = dcoef * em1_d + b * inv_a * dpw
+
+    e = torch.where(interior, torch.where(lo, e_lo, e_hi), pw_d / u)
+    da = torch.where(interior, torch.where(lo, da_lo, da_hi), da_d)
+    gw = g[:, None] * w
+    gsq2 = gw * (a / asafe) * e      # twice g w d rho/d sq
+    return (gsq2 * z * inv_s, torch.sum(gw * da, 0),
+            torch.sum(-(gsq2 * sq * inv_s), 0))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    global triton, tl, tld, _terms
+    global triton, tl, tld
     triton, tl, tld = triton_setup()
-
-    @triton.jit
-    def _terms(x, a, s, EPS: tl.constexpr):
-        beta = tl.maximum(tl.abs(a - 2.0), EPS)
-        asafe = tl.where(a >= 0, 1.0, -1.0) * tl.maximum(tl.abs(a), EPS)
-        z = x / s
-        sq = z * z
-        u = sq / beta + 1.0
-        pw = tld.pow(u, 0.5 * a)
-        return beta, asafe, sq, u, pw
 
     @triton.jit
     def rho_fwd_kernel(x_ptr, a_ptr, s_ptr, w_ptr, r_ptr, M, C,
@@ -88,61 +138,17 @@ def _kernels():
         a = tl.load(a_ptr + cols, mask=cm, other=1.0)[None, :]
         s = tl.load(s_ptr + cols, mask=cm, other=1.0)[None, :]
         w = tl.load(w_ptr + cols, mask=cm, other=0.0)[None, :]
-        beta, asafe, sq, u, pw = _terms(x, a, s, EPS)
-        rho = (beta / asafe) * (pw - 1.0)
+        beta = tl.maximum(tl.abs(a - 2.0), EPS)
+        asafe = tl.where(a >= 0, 1.0, -1.0) * tl.maximum(tl.abs(a), EPS)
+        z = x / s
+        # u^(alpha/2) - 1 as expm1(alpha/2 log1p(sq/beta)): pow(u, alpha/2)
+        # - 1 cancels in f32 for small alpha (at alpha = 0.001 the kernel
+        # then lost to the plain version)
+        rho = (beta / asafe) * tld.expm1(0.5 * a * tld.log1p(z * z / beta))
         r = tl.sum(tl.where(m2, rho * w, 0.0), axis=1)
         tl.store(r_ptr + rows, r, mask=rm)
 
-    @triton.jit
-    def rho_bwd_kernel(x_ptr, a_ptr, s_ptr, w_ptr, g_ptr, dx_ptr, pa_ptr,
-                       ps_ptr, M, C, EPS: tl.constexpr, BLOCK_M: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0).to(tl.int64)
-        rows = pid * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.arange(0, BLOCK_C)
-        rm = rows < M
-        cm = cols < C
-        m2 = rm[:, None] & cm[None, :]
-        x = tl.load(x_ptr + rows[:, None] * C + cols[None, :], mask=m2,
-                    other=0.0)
-        a = tl.load(a_ptr + cols, mask=cm, other=1.0)[None, :]
-        s = tl.load(s_ptr + cols, mask=cm, other=1.0)[None, :]
-        w = tl.load(w_ptr + cols, mask=cm, other=0.0)[None, :]
-        g = tl.load(g_ptr + rows, mask=rm, other=0.0)[:, None]
-        beta, asafe, sq, u, pw = _terms(x, a, s, EPS)
-        gw = g * w
-        # d/dx and d/ds through sq = (x/s)^2
-        dpw_dsq = (0.5 * a) * (pw / u) / beta
-        coef = beta / asafe
-        dx = gw * coef * dpw_dsq * (2.0 * x / (s * s))
-        ds = gw * coef * dpw_dsq * (-2.0 * sq / s)
-        # d/dalpha through beta_safe, alpha_safe and the exponent, in
-        # float64: its two terms, each of order log(u)/alpha, cancel to a
-        # result of order log(u)^2, which loses 2-3 digits for small alpha
-        # (in f32 this kernel then lost to the plain version on the card)
-        a64, x64, s64 = a.to(tl.float64), x.to(tl.float64), s.to(tl.float64)
-        beta64 = tl.maximum(tl.abs(a64 - 2.0), EPS)
-        asafe64 = tl.where(a64 >= 0, 1.0, -1.0) * tl.maximum(tl.abs(a64), EPS)
-        z64 = x64 / s64
-        sq64 = z64 * z64
-        u64 = sq64 / beta64 + 1.0
-        log_u = tld.log(u64)
-        pw64 = tld.exp(0.5 * a64 * log_u)
-        am2 = a64 - 2.0
-        dbeta = tl.where(am2 > EPS, 1.0, tl.where(am2 < -EPS, -1.0, 0.0))
-        dasafe = tl.where(tl.abs(a64) > EPS, 1.0, 0.0)
-        dcoef = (dbeta * asafe64 - beta64 * dasafe) / (asafe64 * asafe64)
-        du = -sq64 / (beta64 * beta64) * dbeta
-        dpw = pw64 * (0.5 * log_u + 0.5 * a64 * du / u64)
-        da = gw.to(tl.float64) * (dcoef * (pw64 - 1.0) +
-                                  (beta64 / asafe64) * dpw)
-        tl.store(dx_ptr + rows[:, None] * C + cols[None, :], dx, mask=m2)
-        tl.store(pa_ptr + pid * C + cols,
-                 tl.sum(tl.where(m2, da, 0.0), axis=0), mask=cm)
-        tl.store(ps_ptr + pid * C + cols,
-                 tl.sum(tl.where(m2, ds, 0.0), axis=0), mask=cm)
-
-    return rho_fwd_kernel, rho_bwd_kernel
+    return rho_fwd_kernel
 
 
 def _blocks(c: int):
@@ -153,27 +159,57 @@ def _blocks(c: int):
 def rho_fwd_launch(x, alpha, scale, w):
     m, c = x.shape
     block_m, block_c = _blocks(c)
-    fwd, _ = _kernels()
+    fwd = _kernels()
     r = torch.empty((m,), dtype=torch.float32, device=x.device)
     fwd[(triton.cdiv(m, block_m),)](x, alpha, scale, w, r, m, c, EPS=F32_EPS,
                                     BLOCK_M=block_m, BLOCK_C=block_c,
                                     num_warps=4)
-    LAUNCHES['robust_rho_fwd'] += 1
+    LAUNCHES[f'robust_rho_fwd[{m}x{c}]'] += 1
     return r
 
 
+def _bwd_lib() -> ctypes.CDLL:
+    lib = load_library('robust_rho_bwd')
+    fn = lib.npp_robust_rho_bwd
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        fn.argtypes = [p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                 p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def bwd_max_channels(c: int) -> int:
+    """The largest C the backward kernel takes: one sweep of 256 threads
+    (4 values each where C % 4 == 0, and x is 16-byte aligned; the launcher
+    checks that and fails the launch above 256 otherwise) holds a whole
+    row."""
+    return 1024 if c % 4 == 0 else 256
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def rho_bwd_launch(g, x, alpha, scale, w):
+    """(dx, dalpha, dscale) of rho_rows on the card; csrc/robust_rho_bwd.cu."""
     m, c = x.shape
-    block_m, block_c = _blocks(c)
-    _, bwd = _kernels()
-    n_prog = triton.cdiv(m, block_m)
+    g = g.contiguous()
+    dev = x.device
+    sms = _sm_count(dev.index)
     dx = torch.empty_like(x)
-    pa = torch.empty((n_prog, c), dtype=torch.float64, device=x.device)
-    ps = torch.empty((n_prog, c), dtype=torch.float32, device=x.device)
-    bwd[(n_prog,)](x, alpha, scale, w, g.contiguous(), dx, pa, ps, m, c,
-                   EPS=F32_EPS, BLOCK_M=block_m, BLOCK_C=block_c, num_warps=8)
-    LAUNCHES['robust_rho_bwd'] += 1
-    return dx, pa.sum(0).to(torch.float32), ps.sum(0)
+    # dalpha, dscale, then the kernel's (2, 8 * SMs, C) partial sums
+    buf = torch.empty(((2 + 16 * sms) * c,), dtype=torch.float32, device=dev)
+    da, ds, part = buf[:c], buf[c:2 * c], buf[2 * c:]
+    status = _bwd_lib().npp_robust_rho_bwd(
+        x.data_ptr(), alpha.data_ptr(), scale.data_ptr(), w.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        da.data_ptr(), ds.data_ptr(), m, c, sms,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_cuda(status, 'robust_rho_bwd')
+    LAUNCHES[f'robust_rho_bwd[{m}x{c}]'] += 1
+    return dx, da, ds
 
 
 class _RhoRows(torch.autograd.Function):
@@ -202,5 +238,8 @@ def rho_rows(x: torch.Tensor, alpha: torch.Tensor, scale: torch.Tensor,
         raise ValueError('rho_rows takes x (M, C) and alpha, scale, w (C,)')
     if any(t.dtype != torch.float32 for t in (x, alpha, scale, w)):
         raise ValueError('rho_rows takes float32 tensors')
+    if c > bwd_max_channels(c):
+        raise ValueError(f'rho_rows takes at most {bwd_max_channels(c)} '
+                         f'channels here, got {c}')
     return _RhoRows.apply(x.contiguous(), alpha.contiguous(),
                           scale.contiguous(), w.detach().contiguous())

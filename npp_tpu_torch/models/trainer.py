@@ -3,8 +3,9 @@
 Port of `npp_tpu/models/trainer.py` for the completion task. What differs
 from the JAX package, and why:
  - PyTorch runs eagerly, so a "block" is a Python loop of steps; the canvas
-   embedding table (cfg.embed_table) is still built once per block by K1
-   and gathered per step, as the JAX scan-block does (trainer.py:285-327).
+   embedding table (cfg.embed_table, in its dtype, under the same size
+   guard) is still built once per block by K1 and gathered per step, as
+   the JAX scan-block does (trainer.py:285-327).
  - The perceptual term runs only on 'same' steps (trainer.py:223-224). In
    JAX its latents then get zero gradients and optax Adam still moves them
    by momentum; torch.optim.Adam skips a parameter whose .grad is None and
@@ -193,11 +194,24 @@ def fit_step(state: FitState, loss_fn, embedder, consts: FitConsts,
     return metrics
 
 
-def uses_table(cfg, embedder, block: int) -> bool:
-    """cfg.embed_table: gather from a per-block canvas table; pointless for
-    tiny blocks (trainer.py:295-297)."""
-    return (cfg.embed_table in ('float32', 'bfloat16') and block >= 8 and
-            isinstance(embedder, TaskEmbedder))
+def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
+    """The dtype of the per-block canvas table, or None to embed on the fly
+    through K1 (npp_tpu/models/trainer.py:293-312): cfg.embed_table names
+    it; no table for tiny blocks, or above cfg.embed_table_max_mb, unless
+    cfg.embed_table_degrade lets a bf16 table stand in for an f32 one too
+    large."""
+    dtype = {'float32': torch.float32,
+             'bfloat16': torch.bfloat16}.get(cfg.embed_table)
+    if dtype is None or block < 8 or not isinstance(embedder, TaskEmbedder):
+        return None
+    h, w = embedder.res
+    mb = int(h) * int(w) * embedder.out_dim * dtype.itemsize / 1e6
+    max_mb = int(cfg.embed_table_max_mb)
+    if mb <= max_mb:
+        return dtype
+    if dtype == torch.float32 and cfg.embed_table_degrade and mb / 2 <= max_mb:
+        return torch.bfloat16
+    return None
 
 
 def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
@@ -206,10 +220,11 @@ def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
     With cfg.embed_table the canvas embedding is built once per block."""
     loss_fn = build_loss_fn(cfg, percep, contextual, patch_num, patch_size)
     schedule = make_schedule(cfg)
-    use_table = uses_table(cfg, embedder, block)
+    dtype = table_dtype(cfg, embedder, block)
 
     def run_block(state: FitState, gen: torch.Generator):
-        emb = make_embedding_table(embedder) if use_table else embedder
+        emb = embedder if dtype is None else \
+            make_embedding_table(embedder, dtype)
         metrics = None
         for _ in range(block):
             metrics = fit_step(state, loss_fn, emb, consts, gen, schedule)

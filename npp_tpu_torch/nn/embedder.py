@@ -105,10 +105,14 @@ class TaskEmbedder:
     out_dim: int
     top1_dim: int
 
-    def embed(self, coords_yx: torch.Tensor) -> torch.Tensor:
+    def embed(self, coords_yx: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """(..., 2) -> (..., out_dim) in out_dtype (float32, or bfloat16
+        for the canvas table: the f32 values rounded to nearest even)."""
         return periodic_embed(coords_yx, self.angles, self.periods,
                               self.freq_bands, self.freq_scales,
-                              self.freq_offsets, self.angle_offsets, self.res)
+                              self.freq_offsets, self.angle_offsets, self.res,
+                              out_dtype)
 
 
 def make_task_embedder(cfg, proposals_angles, proposals_periods,
@@ -136,9 +140,11 @@ class TableEmbedder:
     """Gather-based stand-in for TaskEmbedder built from a precomputed
     (H*W, D) canvas table (cfg.embed_table; npp_tpu/nn/embedder.py:186-212).
     Every coordinate the fit embeds is an integer, in-bounds canvas pixel,
-    so `table[y*W + x]` is the same function as the trig chain."""
+    so `table[y*W + x]` is the same function as the trig chain. A bfloat16
+    table's rows come back as f32, the values `npp_tpu`'s first matmul
+    promotes them to (nn/mlp.py:42)."""
 
-    table: torch.Tensor     # (H*W, D)
+    table: torch.Tensor     # (H*W, D), float32 or bfloat16
     res: Tuple[int, int]
     out_dim: int
     top1_dim: int
@@ -146,20 +152,21 @@ class TableEmbedder:
     def embed(self, coords_yx: torch.Tensor) -> torch.Tensor:
         w = self.res[1]
         idx = coords_yx[..., 0].long() * w + coords_yx[..., 1].long()
-        return self.table.index_select(0, idx.reshape(-1)).reshape(
+        return self.table.index_select(0, idx.reshape(-1)).float().reshape(
             *coords_yx.shape[:-1], -1)
 
 
 @torch.no_grad()
-def make_embedding_table(base: TaskEmbedder, chunk: int = 1 << 18
-                         ) -> TableEmbedder:
-    """Evaluate `base.embed` over the whole canvas, `chunk` rows per K1
-    launch (one launch at 384x512), and wrap it as a TableEmbedder."""
+def make_embedding_table(base: TaskEmbedder, dtype: torch.dtype = torch.float32,
+                         chunk: int = 1 << 18) -> TableEmbedder:
+    """Evaluate `base.embed` over the whole canvas in `dtype`, `chunk` rows
+    per K1 launch (one launch at 384x512; bfloat16 as npp_tpu's
+    `.astype(dtype)`), and wrap it as a TableEmbedder."""
     h, w = base.res
     dev = base.angles.device
     ys, xs = torch.meshgrid(torch.arange(h, device=dev),
                             torch.arange(w, device=dev), indexing='ij')
     coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
-    table = torch.cat([base.embed(c) for c in coords.split(chunk)], 0)
+    table = torch.cat([base.embed(c, dtype) for c in coords.split(chunk)], 0)
     return TableEmbedder(table=table, res=(int(h), int(w)),
                          out_dim=base.out_dim, top1_dim=base.top1_dim)

@@ -22,7 +22,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (  # first match wins; names as the profiler reports kernels
     ('K1 periodic_embed', ('periodic_embed_kernel',)),
     ('K2 bias_snake', ('snake_fwd_kernel', 'snake_bwd_kernel')),
-    ('K4 robust_rho', ('rho_fwd_kernel', 'rho_bwd_kernel')),
+    ('K4 robust_rho', ('rho_fwd_kernel', 'rho_bwd_kernel',
+                       'rho_bwd_finish')),
     ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fprop', 'dgrad',
               'wgrad')),
     ('matmul', ('gemm', 'xmma', 'cutlass', 'sm90_')),

@@ -46,6 +46,57 @@ def test_wrappers_take_the_plain_version_on_the_cpu():
     assert not any(launch_counts().values())
 
 
+def test_k1_bf16_on_the_cpu_is_the_f32_plain_version_rounded():
+    """bfloat16 output: the f32 function rounded to nearest even, as
+    npp_tpu's `.astype(jnp.bfloat16)` of its table."""
+    reset_launches()
+    args = _embed_args('cpu')
+    got = periodic_embed.periodic_embed(*args, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, periodic_embed.periodic_embed_plain(*args).to(
+        torch.bfloat16))
+    assert not any(launch_counts().values())
+    with pytest.raises(ValueError):
+        periodic_embed.periodic_embed(*args, out_dtype=torch.float16)
+
+
+# alpha over the adaptive range, densest at its ends, where the direct
+# form of the alpha derivative cancels in f32
+ALPHAS = (0.001, 0.01, 0.1, 0.3, 0.5, 0.9, 0.999, 1.0, 1.2, 1.5, 1.8, 1.9,
+          1.99, 1.999)
+
+
+@pytest.mark.parametrize('scale', [0.01, 0.05, 0.5])
+def test_k4_backward_arithmetic_matches_float64(scale):
+    """rho_bwd_plain (the backward kernel's arithmetic, in f32) against
+    float64 autograd of rho_rows_plain, element by element: each element
+    is its own channel, with alpha exactly each of ALPHAS and x ~ N(0,
+    0.2^2). Per output and alpha, its error relative to the largest
+    float64 magnitude is no worse than f32 autograd's own, or 1e-5 (a few
+    f32 ulp). f32 autograd's alpha gradient is off by 1e-2 to 2 at alpha
+    0.001 and by 2e-5 to 5e-5 at 1.999."""
+    rng = np.random.RandomState(int(scale * 100))
+    n = 2048
+    x = torch.tensor(rng.randn(1, n) * 0.2, dtype=torch.float32)
+    g = torch.ones(1)
+    w = torch.ones(n)
+    s = torch.full((n,), scale)
+    for alpha in ALPHAS:
+        a = torch.full((n,), alpha)
+        got = rr.rho_bwd_plain(g, x, a, s, w)
+        grads = []
+        for dt in (torch.float32, torch.float64):
+            ins = [t.to(dt, copy=True).requires_grad_() for t in (x, a, s)]
+            rr.rho_rows_plain(*ins, w.to(dt)).backward(g.to(dt))
+            grads.append([t.grad for t in ins])
+        for name, mine, p32, ref in zip(('dx', 'dalpha', 'dscale'), got,
+                                        *grads):
+            top = float(ref.abs().max())
+            k_err = float((mine.double() - ref).abs().max()) / top
+            p_err = float((p32.double() - ref).abs().max()) / top
+            assert k_err <= max(p_err, 1e-5), (name, alpha, k_err, p_err)
+
+
 def test_embed_dims_match_the_config():
     from npp_tpu_torch.config import (CompletionConfig, nerf_embed_dim,
                                       periodic_embed_dim)
@@ -73,6 +124,29 @@ def test_k1_matches_plain_on_the_card():
         assert launch_counts()['periodic_embed'] == before + 1
         assert got.shape == want.shape
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k1_bf16_matches_plain_on_the_card():
+    """bfloat16 output: the f32 kernel's output rounded to nearest even,
+    bit for bit, so within one bf16 ulp of the plain f32 result rounded to
+    bf16, plus K1's f32 tolerance of 1e-5 near zero, where the ulp is
+    tiny."""
+    dev = _card()
+    args = _embed_args(dev, n=5000)
+    before = launch_counts()['periodic_embed_bf16']
+    got = periodic_embed.periodic_embed(*args, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert launch_counts()['periodic_embed_bf16'] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, periodic_embed.periodic_embed(*args).to(
+        torch.bfloat16))
+    got = got.float()
+    want = periodic_embed.periodic_embed_plain(*args).to(
+        torch.bfloat16).float()
+    top = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    assert bool(((got - want).abs() <= ulp + 1e-5).all())
 
 
 def _assert_no_worse_than_plain(fn, plain, inputs, consts, g):
@@ -121,3 +195,26 @@ def test_k4_forward_and_backward_match_plain_on_the_card(m, c):
     g = torch.randn(m, generator=gen).to(dev)
     _assert_no_worse_than_plain(rr.rho_rows, rr.rho_rows_plain,
                                 (x, alpha, scale), (w,), g)
+
+
+# the main path's K4 shapes: the pixel loss, then each LPIPS layer at six
+# 160x160 patches
+K4_SHAPES = [(8192, 3), (153600, 64), (38400, 128), (9600, 256),
+             (2400, 512), (600, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('m,c', K4_SHAPES)
+@pytest.mark.parametrize('alpha', [0.001, 1.0, 1.999])
+def test_k4_at_main_path_shapes_on_the_card(m, c, alpha):
+    """Every channel at alpha exactly 0.001, 1.0 or 1.999: the ends of the
+    adaptive range and the switch between the backward's two forms."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(m + c)
+    x = (torch.randn(m, c, generator=gen) * 0.2).to(dev)
+    a = torch.full((c,), alpha, device=dev)
+    scale = (0.01 + torch.rand(c, generator=gen)).to(dev)
+    w = torch.rand(c, generator=gen).to(dev)
+    g = torch.randn(m, generator=gen).to(dev)
+    _assert_no_worse_than_plain(rr.rho_rows, rr.rho_rows_plain,
+                                (x, a, scale), (w,), g)

@@ -18,6 +18,7 @@ from npp_tpu.models import sampler as JS
 from npp_tpu.models import trainer as JT
 from npp_tpu.models.completion import COMPLETION_TASK
 from npp_tpu.models.loaders import TaskData as JaxTaskData
+from npp_tpu.nn import embedder as JE
 from npp_tpu_torch import config as TC
 from npp_tpu_torch.losses.pixel import img2mse
 from npp_tpu_torch.losses.robust import adaptive_init
@@ -25,7 +26,7 @@ from npp_tpu_torch.models import pipeline as TP
 from npp_tpu_torch.models import sampler as TS
 from npp_tpu_torch.models import trainer as TT
 from npp_tpu_torch.models.loaders import TaskData
-from npp_tpu_torch.nn.embedder import TaskEmbedder
+from npp_tpu_torch.nn.embedder import TaskEmbedder, make_embedding_table
 from npp_tpu_torch.nn.mlp import NPPNet
 from npp_tpu_torch.utils.convert import params_from_jax
 from tests.torch_threads import few_threads  # noqa: F401  (autouse)
@@ -70,6 +71,20 @@ def test_fit_step_loss_and_grads_match_jax(monkeypatch):
     tests/test_torch_losses.py::native_conv): loss rtol 1e-4; gradients
     within 2e-3 of each tensor's largest magnitude (the CX softmax
     amplifies convolution reassociation)."""
+    _fit_step_parity(monkeypatch, None)
+
+
+def test_bf16_table_fit_step_matches_jax(monkeypatch):
+    """The same step through each package's bfloat16 canvas table
+    (embed_table='bfloat16'), at the same tolerances. The parent commit of
+    this test failed it: its port built that table in float32 whatever the
+    dtype, so its step computed another function than npp_tpu's."""
+    _fit_step_parity(monkeypatch, 'bfloat16')
+
+
+def _fit_step_parity(monkeypatch, table):
+    """One injected step through both packages; table: None for the trig
+    chain, or the dtype name of the canvas table both embed through."""
     cfg = jax_replace(JaxCompletionConfig(), matmul_precision='float32',
                       **TINY)
     arrays = _tiny_arrays()
@@ -89,8 +104,10 @@ def test_fit_step_loss_and_grads_match_jax(monkeypatch):
                                 comps.percep, comps.contextual, comps.style,
                                 1, 16)
     key = jax.random.PRNGKey(7)
+    jemb = comps.embedder if table is None else \
+        JE.make_embedding_table(comps.embedder, jnp.dtype(table))
     (jl, jm), jg = jax.jit(jax.value_and_grad(
-        lambda p: jloss_fn(p, comps.embedder, consts, key), has_aux=True))(
+        lambda p: jloss_fn(p, jemb, consts, key), has_aux=True))(
         state.params)
     pix_idx = jax.random.randint(jax.random.split(key)[0], (cfg.N_rand,), 0,
                                  consts.pool_train_n)
@@ -108,6 +125,8 @@ def test_fit_step_loss_and_grads_match_jax(monkeypatch):
     tstate.params.adaptive_pix.load_state_dict(conv['adaptive_pix'])
     tstate.params.adaptive_percep.load_state_dict(conv['adaptive_percep'])
     tcomps.embedder.freq_bands = conv['embedder']['freq_bands']
+    temb = tcomps.embedder if table is None else \
+        make_embedding_table(tcomps.embedder, getattr(torch, table))
     tbatch = TS.PatchBatch(*[torch.as_tensor(np.asarray(v)) for v in
                              batch[:-1]], int(batch.source))
     tbatch.fake_coords = tbatch.fake_coords.long()
@@ -115,7 +134,7 @@ def test_fit_step_loss_and_grads_match_jax(monkeypatch):
                                 inject=(torch.as_tensor(np.asarray(pix_idx)
                                                         ).long(), tbatch))
     with torch.backends.mkldnn.flags(enabled=False):
-        loss, metrics = tloss_fn(tstate.params, tcomps.embedder,
+        loss, metrics = tloss_fn(tstate.params, temb,
                                  TP.make_fit_consts(tcfg, tdata, 16, CPU),
                                  None)
         loss.backward()
