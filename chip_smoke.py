@@ -4,22 +4,30 @@ plain versions.
     python3 chip_smoke.py            (from the repository root, one card)
 
 Phases, in order; any failure exits non-zero:
- 1. device: the card's name and power limit; TF32 off for matmuls and convs;
- 2. build: K1 (csrc/periodic_embed.cu) and K4's backward
-    (csrc/robust_rho_bwd.cu), one nvcc each, started together, printing
-    `-Xptxas -v`;
- 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-    card at the main path's shapes, forward and backward (K1 in f32 and
-    bf16, K4 at each of its main path's shapes), timed by CUDA-graph replay
-    (device time) and by eager launches; then one fit step with injected
-    inputs on the card against the same step on the CPU (plain versions);
- 4. main path: `run_completion` on the 384x512 synthetic example at the
-    default CompletionConfig widths, 21 iterations (two blocks of 10 steps,
-    evals at 10 and 20, the final render, composite and val_lpips), with
-    every launch count set to 0 just before and read just after;
- 5. bf16-table path: the same fit with embed_table='bfloat16', 11
+ 1. device: the card's name and power limit;
+ 2. build: K1 (csrc/periodic_embed.cu) and K4's forward and backward
+    (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu), one nvcc each,
+    started together, printing `-Xptxas -v`;
+ 3. kernels, with TF32 off: each kernel's wrapper against its plain
+    PyTorch version on the card at the main path's shapes (K1 in f32 and
+    bf16; K2 forward and backward; K4's forward at the pixel loss's and
+    the evaluation's shapes and as one grouped launch over the five LPIPS
+    layers, with alpha spread and at exactly 0.001, 1.0 and 1.999, and
+    within 1e-6 of float64; K4's backward at each shape), timed by
+    CUDA-graph replay (device time) and by eager launches; then one fit
+    step with injected inputs and matmul_precision='float32' on the card
+    against the same step on the CPU (plain versions);
+ 4. TF32: the gradients of the CX and LPIPS-robust terms and of one
+    default step under the default matmul_precision ('bfloat16': TF32 on)
+    against 'float32', at the flagship patch scale; cosine >= 0.99;
+ 5. main path: `run_completion` on the 384x512 synthetic example at the
+    default CompletionConfig (TF32 in the steps and the render), 21
+    iterations (two blocks of 10 steps, evals at 10 and 20, the final
+    render, composite and val_lpips), with every launch count set to 0
+    just before and read just after;
+ 6. bf16-table path: the same fit with embed_table='bfloat16', 11
     iterations (one block, one eval), counted the same way;
- 6. one JSON line of kernels, the nvidia-smi line, and the final
+ 7. one JSON line of kernels, the nvidia-smi line, and the final
     {"ok": true, "device": {...}} line.
 """
 import concurrent.futures
@@ -129,19 +137,15 @@ def phase_device():
         fail(f'no npp_tpu_torch package beside {__file__}: run it from a '
              'checkout of the repository')
     sys.path.insert(0, ROOT)
-    from npp_tpu_torch.device import set_reference_precision
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
-    set_reference_precision()
     log(f'device {name}; torch {torch.__version__}, CUDA {torch.version.cuda}')
-    log('TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, '
-        'torch.backends.cudnn.allow_tf32 = False')
     return name, smi
 
 
-CUDA_SOURCES = ('periodic_embed', 'robust_rho_bwd')
+CUDA_SOURCES = ('periodic_embed', 'robust_rho_fwd', 'robust_rho_bwd')
 
 
 def phase_build():
@@ -285,42 +289,121 @@ def check_k2(gen):
     return out
 
 
-# the main path's K4 shapes, forward and backward: the pixel loss, then
-# each LPIPS layer at six 160x160 patches
-K4_SHAPES = [(8192, 3)] + [(6 * s * s, c) for s, c in
-                           ((160, 64), (80, 128), (40, 256), (20, 512),
-                            (10, 512))]
+# the main path's K4 shapes: the pixel loss, then each LPIPS layer at six
+# 160x160 patches (forward: one grouped launch for the five layers)
+K4_PIXEL = (8192, 3)
+K4_LPIPS = [(6 * s * s, c) for s, c in
+            ((160, 64), (80, 128), (40, 256), (20, 512), (10, 512))]
+K4_ALPHAS = ('spread', 0.001, 1.0, 1.999)
+K4_REPLACES = ('npp_tpu/losses/robust.py:134 (nllfun per-element rho{}, '
+               'XLA-fused; no pl.pallas_call in the repo)')
+FWD_F64_BAR = 1e-6   # K4 forward against float64, relative to its largest
+
+
+def k4_inputs(gen, m, c, alpha):
+    """x ~ N(0, 0.2^2) (m, c) and alpha, scale, w (c,) on the card: alpha
+    spread over the adaptive range (0.001, 1.999) or every channel at
+    `alpha`; w = 1 for the pixel loss's three channels."""
+    import torch
+    dev = torch.device('cuda')
+    x = (torch.randn(m, c, generator=gen) * 0.2).to(dev)
+    a = (0.001 + 1.998 * torch.rand(c, generator=gen)) if alpha == 'spread' \
+        else torch.full((c,), alpha)
+    scale = 0.01 + torch.rand(c, generator=gen)
+    w = torch.ones(c) if c == 3 else torch.rand(c, generator=gen)
+    return x, a.to(dev), scale.to(dev), w.to(dev)
+
+
+def judge_k4_fwd(gen, shapes):
+    """K4's forward at `shapes`, one launch for all of them (one shape:
+    the single launch), at every alpha of K4_ALPHAS: judge() against the
+    plain version per shape, and FWD_F64_BAR against float64. Returns the
+    worst judge() result with 'passed' covering both."""
+    import torch
+    from npp_tpu_torch.kernels import robust_rho as rr
+    worst = None
+    for alpha in K4_ALPHAS:
+        segs = [k4_inputs(gen, m, c, alpha) for m, c in shapes]
+        got = rr.rho_fwd_group_launch(segs)
+        torch.cuda.synchronize()
+        for r, seg in zip(got, segs):
+            e = judge([(r, rr.rho_rows_plain(*seg),
+                        rr.rho_rows_plain(*[t.double() for t in seg]))])
+            e['passed'] = e['passed'] and e['rel_err_vs_f64'] <= FWD_F64_BAR
+            worst = e if worst is None else merge(worst, e)
+    return worst
+
+
+def k4_entry(name, source, shape, err, kernel, plain, n_bytes, ops, **extra):
+    b_ms, b_by = bound_ms(n_bytes, ops)
+    return dict(name=name, route='cuda', source=source,
+                replaces=K4_REPLACES.format(', its gradient' if 'bwd' in name
+                                            else ''),
+                shape=shape, **err, ms=time_ms(kernel),
+                eager_ms=eager_ms(kernel), plain_ms=time_ms(plain),
+                bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
+                library_ms=None, **extra)
+
+
+FWD_SRC = 'npp_tpu_torch/csrc/robust_rho_fwd.cu'
+BWD_SRC = 'npp_tpu_torch/csrc/robust_rho_bwd.cu'
+
+
+def fwd_bytes_ops(m, c):
+    """K4 forward: x read, r written, alpha, scale and w read (C each)."""
+    return (m * c + m + 3 * c) * 4, 30 * m * c
 
 
 def check_k4(gen):
-    """K4 forward and backward (dx, dalpha, dscale) at the pixel loss's and
-    each LPIPS layer's shape, and the forward alone at the evaluation's
-    train- and hole-pixel losses; each judged and timed on its own, one
-    entry per direction and shape, named like the launch counts by shape."""
+    """K4's forward at the pixel loss's shape, the five LPIPS layers in one
+    grouped launch (judged per segment; each layer also timed alone, under
+    'segments'), and the evaluation's train- and hole-pixel shapes; its
+    backward (dx, dalpha, dscale) at the pixel loss's and each LPIPS
+    layer's shape. One entry per direction and shape (the group: one
+    entry), named like the launch counts."""
     import torch
     from npp_tpu_torch.kernels import robust_rho as rr
     from npp_tpu_torch.utils.synthetic import synthetic_data
     data = synthetic_data(0)
-    dev = torch.device('cuda')
-    shapes = [(m, c, ('fwd', 'bwd')) for m, c in K4_SHAPES] + [
-        (len(ix), 3, ('fwd',)) for ix in (data.i_train, data.i_val)]
     out = []
-    for m, c, keys in shapes:
-        x = (torch.randn(m, c, generator=gen) * 0.2).to(dev)
-        alpha = (0.001 + 1.998 * torch.rand(c, generator=gen)).to(dev)
-        scale = (0.01 + torch.rand(c, generator=gen)).to(dev)
-        w = torch.ones(c, device=dev) if c == 3 else \
-            torch.rand(c, generator=gen).to(dev)
-        g = torch.randn(m, generator=gen).to(dev)
+    for m, c in [K4_PIXEL] + [(len(ix), 3) for ix in (data.i_train,
+                                                       data.i_val)]:
+        err = judge_k4_fwd(gen, [(m, c)])
+        x, alpha, scale, w = k4_inputs(gen, m, c, 'spread')
+        out.append(k4_entry(
+            f'robust_rho_fwd[{m}x{c}]', FWD_SRC, [m, c], err,
+            lambda: rr.rho_fwd_launch(x, alpha, scale, w),
+            lambda: rr.rho_rows_plain(x, alpha, scale, w),
+            *fwd_bytes_ops(m, c)))
+
+    err = judge_k4_fwd(gen, K4_LPIPS)
+    segs = [k4_inputs(gen, m, c, 'spread') for m, c in K4_LPIPS]
+    singles = []
+    for (m, c), seg in zip(K4_LPIPS, segs):
+        b_ms, _ = bound_ms(*fwd_bytes_ops(m, c))
+        singles.append(dict(
+            shape=[m, c], ms=time_ms(lambda: rr.rho_fwd_launch(*seg)),
+            eager_ms=eager_ms(lambda: rr.rho_fwd_launch(*seg)),
+            bound_ms=b_ms))
+    n_bytes, ops = (sum(v) for v in zip(*[fwd_bytes_ops(m, c)
+                                          for m, c in K4_LPIPS]))
+    shapes = ','.join(f'{m}x{c}' for m, c in K4_LPIPS)
+    out.append(k4_entry(
+        f'robust_rho_fwd_group[{shapes}]', FWD_SRC,
+        [list(sh) for sh in K4_LPIPS], err,
+        lambda: rr.rho_fwd_group_launch(segs),
+        lambda: rr.rho_rows_group_plain(*zip(*segs)), n_bytes, ops,
+        segments=singles))
+
+    for m, c in [K4_PIXEL] + K4_LPIPS:
+        x, alpha, scale, w = k4_inputs(gen, m, c, 'spread')
+        g = torch.randn(m, generator=gen).to(x.device)
         ins_k = [t.clone().requires_grad_() for t in (x, alpha, scale)]
         ins_p = [t.clone().requires_grad_() for t in (x, alpha, scale)]
-        r = rr.rho_rows(*ins_k, w)
-        r.backward(g)
-        rp = rr.rho_rows_plain(*ins_p, w)
-        rp.backward(g)
+        rr.rho_rows(*ins_k, w).backward(g)
+        rr.rho_rows_plain(*ins_p, w).backward(g)
         ins_d = [t.double().requires_grad_() for t in (x, alpha, scale)]
-        rd = rr.rho_rows_plain(*ins_d, w.double())
-        rd.backward(g.double())
+        rr.rho_rows_plain(*ins_d, w.double()).backward(g.double())
         torch.cuda.synchronize()
 
         def plain_bwd():
@@ -328,47 +411,32 @@ def check_k4(gen):
                           for t in (x, alpha, scale))
             return torch.autograd.grad(rr.rho_rows_plain(xs, a_, s_, w),
                                        (xs, a_, s_), g)
-        # forward: x read, r written; backward: x and g read, dx, dalpha
-        # and dscale written (alpha, scale and w are C values each)
-        cases = {
-            'fwd': ([(r, rp, rd)],
-                    lambda: rr.rho_fwd_launch(x, alpha, scale, w),
-                    lambda: rr.rho_rows_plain(x, alpha, scale, w),
-                    (m * c + m + 3 * c) * 4, 30 * m * c),
-            'bwd': ([(a.grad, b.grad, d.grad) for a, b, d in
-                     zip(ins_k, ins_p, ins_d)],
-                    lambda: rr.rho_bwd_launch(g, x, alpha, scale, w),
-                    plain_bwd, (2 * m * c + m + 5 * c) * 4, 60 * m * c)}
-        for key in keys:
-            pairs, kernel, plain, n_bytes, ops = cases[key]
-            b_ms, b_by = bound_ms(n_bytes, ops)
-            out.append(dict(
-                name=f'robust_rho_{key}[{m}x{c}]',
-                route='triton' if key == 'fwd' else 'cuda',
-                source='npp_tpu_torch/kernels/robust_rho.py' if key == 'fwd'
-                else 'npp_tpu_torch/csrc/robust_rho_bwd.cu',
-                replaces='npp_tpu/losses/robust.py:134 (nllfun per-element '
-                         'rho' + ('' if key == 'fwd' else ', its gradient') +
-                         ', XLA-fused; no pl.pallas_call in the repo)',
-                shape=[m, c], **judge(pairs), ms=time_ms(kernel),
-                eager_ms=eager_ms(kernel), plain_ms=time_ms(plain),
-                bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
-                library_ms=None))
+        # x and g read, dx, dalpha and dscale written (alpha, scale and w
+        # are C values each)
+        out.append(k4_entry(
+            f'robust_rho_bwd[{m}x{c}]', BWD_SRC, [m, c],
+            judge([(a.grad, b.grad, d.grad) for a, b, d in
+                   zip(ins_k, ins_p, ins_d)]),
+            lambda: rr.rho_bwd_launch(g, x, alpha, scale, w), plain_bwd,
+            (2 * m * c + m + 5 * c) * 4, 60 * m * c))
     return out
 
 
 def check_fit_step():
     """One fit step with every loss on, the same parameters and injected
     batch on the card (kernels) and on the CPU (plain versions): loss and
-    gradients agree. Small widths; f32 with TF32 off on both sides."""
+    gradients agree. Small widths; matmul_precision='float32', so full f32
+    on both sides (TF32 would break the tolerances below)."""
     import torch
     from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.sampler import SOURCE_SAME, sample_patches
     from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
     from npp_tpu_torch.utils.synthetic import synthetic_data
     cfg = replace(CompletionConfig(), netwidth=64, netdepth=6, N_rand=512,
-                  patch_num=1, num_real_patch_per_sample=2)
+                  patch_num=1, num_real_patch_per_sample=2,
+                  matmul_precision='float32')
     data = synthetic_data(0, 96, 128)
     data.patch_size = 32
     res = {}
@@ -387,9 +455,10 @@ def check_fit_step():
                                   for t in vars(batch).values()]))
         loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, 1, 32,
                                 inject=inj)
-        loss, _ = loss_fn(state.params, comps.embedder,
-                          make_fit_consts(cfg, data, 32, dev), None)
-        loss.backward()
+        with matmul_precision(cfg.matmul_precision):
+            loss, _ = loss_fn(state.params, comps.embedder,
+                              make_fit_consts(cfg, data, 32, dev), None)
+            loss.backward()
         res[name] = (loss.detach().cpu(),
                      {k: p.grad.cpu() for k, p in
                       state.params.named_parameters() if p.grad is not None})
@@ -403,6 +472,93 @@ def check_fit_step():
     # f32 on both sides; convolutions and reductions reassociate
     if not (l_err < 1e-4 and g_err < 1e-2):
         fail('fit step on the card disagrees with the CPU')
+
+
+TF32_COSINE_BAR = 0.99
+
+
+def cosine(a, b):
+    import torch
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(torch.dot(a, b) / (a.norm() * b.norm()).clamp(min=1e-300))
+
+
+def check_tf32_gradients():
+    """The fit's default matmul_precision ('bfloat16': TF32 on the card)
+    against 'float32' (TF32 off), on one card and the same inputs, at the
+    flagship patch scale (default CompletionConfig widths, 2 fake 160^2
+    patches with K=3 real ones each, a 'same' batch of the 384x512
+    example): the cosine between the two gradients of the CX term and of
+    the LPIPS-robust term with respect to the predicted patches, and of one
+    whole default step's loss with respect to the MLP's parameters. The
+    predicted patches for the two terms are the fake patches' known pixels,
+    gray in the hole, plus N(0, 0.05^2) noise: a fit part of the way. Fails
+    below TF32_COSINE_BAR."""
+    import torch
+    from npp_tpu_torch.config import CompletionConfig
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
+    from npp_tpu_torch.models.sampler import SOURCE_SAME, sample_patches
+    from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    cfg = CompletionConfig()
+    data = synthetic_data(0)
+    dev = torch.device('cuda')
+    comps = build_components(cfg, data, dev)
+    state = init_fit_state(cfg, comps.model, comps.percep, dev)
+    p, s, k = cfg.patch_num, data.patch_size, cfg.num_real_patch_per_sample
+    consts = make_fit_consts(cfg, data, s, dev)
+    gen = torch.Generator().manual_seed(5)
+    while True:
+        batch = sample_patches(gen, consts.sampler, p, s, k,
+                               cfg.invalid_ratio)
+        if batch.source == SOURCE_SAME:
+            break
+    pk = p * k
+    real_rgb = batch.real_rgb.reshape(pk, s, s, 3)
+    real_mask = batch.real_mask.reshape(pk, s, s, 1)
+    fake_mask = batch.fake_mask.reshape(p, s, s, 1)
+    fake_rgb = batch.fake_rgb.reshape(p, s, s, 3)
+    valid = batch.valid.reshape(pk)
+    noise = (0.05 * torch.randn(p, s, s, 3, generator=gen)).to(dev)
+    pred0 = torch.clamp(fake_rgb * fake_mask + 0.5 * (1.0 - fake_mask) +
+                        noise, 0.0, 1.0)
+
+    def per_slot(t):
+        return t[:, None].expand((p, k) + t.shape[1:]).reshape(
+            (pk,) + t.shape[1:])
+
+    terms = {
+        'contextual': lambda pred: comps.contextual(
+            per_slot(pred) * real_mask, real_rgb * real_mask, valid=valid),
+        'lpips_robust': lambda pred: torch.sum(comps.percep(
+            per_slot(pred) * real_mask, per_slot(fake_rgb) * real_mask,
+            use_robust=True, adaptive=state.params.adaptive_percep,
+            normalize=True)),
+    }
+    pix = torch.randint(0, consts.pool_train_n, (cfg.N_rand,), generator=gen)
+    loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, p, s,
+                            inject=(pix, batch))
+    grads = {}
+    for prec in (cfg.matmul_precision, 'float32'):
+        with matmul_precision(prec):
+            for name, term in terms.items():
+                pred = pred0.clone().requires_grad_()
+                grads.setdefault(name, []).append(
+                    torch.autograd.grad(term(pred), pred)[0])
+            state.params.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(state.params, comps.embedder, consts, None)
+            loss.backward()
+        grads.setdefault('mlp_step', []).append(torch.cat(
+            [q.grad.flatten() for q in state.params.mlp.parameters()]))
+    res = {name: cosine(*g) for name, g in grads.items()}
+    log(f'TF32 on ({cfg.matmul_precision!r}) against off (\'float32\'), '
+        f'flagship patch scale: gradient cosines {res}')
+    low = [n for n, v in res.items() if not v >= TF32_COSINE_BAR]
+    if low:
+        fail(f'TF32 turns these gradients by more than a cosine of '
+             f'{TF32_COSINE_BAR}: {low}')
+    return res
 
 
 def drive(label, must_launch, **overrides):
@@ -460,27 +616,40 @@ def drive(label, must_launch, **overrides):
 def main():
     name, smi = phase_device()
     import torch
+    from npp_tpu_torch.device import matmul_precision
     phase_build()
     gen = torch.Generator().manual_seed(0)
-    kernels = check_k1(gen) + check_k2(gen) + check_k4(gen)
-    for k in kernels:
-        err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
-               f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
-               if 'tol' in k else f"{k['max_bf16_ulps']:.2f} bf16 ulp, equals "
-               f"the f32 kernel rounded: {k['equals_f32_kernel_rounded']}")
-        log(f"{k['name']}: max abs diff from plain {k['max_abs_err']:.3e}; "
-            f"{err}; {k['ms']:.4f} ms (eager {k['eager_ms']:.4f}) vs plain "
-            f"{k['plain_ms']:.4f} ms, bound {k['bound_us']:.1f} us "
-            f"({k['bound_by']})")
-    bad = [k['name'] for k in kernels if not k['passed']]
-    if bad:
-        fail(f'kernels disagree with their plain versions: {bad}')
-    check_fit_step()
+    with matmul_precision('float32'):
+        log('kernel checks and the fit step: TF32 off '
+            '(torch.backends.cuda.matmul.allow_tf32 = False, '
+            'torch.backends.cudnn.allow_tf32 = False)')
+        kernels = check_k1(gen) + check_k2(gen) + check_k4(gen)
+        for k in kernels:
+            err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
+                   f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
+                   if 'tol' in k else
+                   f"{k['max_bf16_ulps']:.2f} bf16 ulp, equals the f32 kernel "
+                   f"rounded: {k['equals_f32_kernel_rounded']}")
+            log(f"{k['name']}: max abs diff from plain {k['max_abs_err']:.3e}; "
+                f"{err}; {k['ms']:.4f} ms (eager {k['eager_ms']:.4f}) vs "
+                f"plain {k['plain_ms']:.4f} ms, bound {k['bound_us']:.1f} us "
+                f"({k['bound_by']})")
+            for seg in k.get('segments', ()):
+                log(f"  alone at {seg['shape']}: {seg['ms']:.4f} ms (eager "
+                    f"{seg['eager_ms']:.4f}), bound "
+                    f"{1e3 * seg['bound_ms']:.1f} us")
+        bad = [k['name'] for k in kernels if not k['passed']]
+        if bad:
+            fail(f'kernels disagree with their plain versions: {bad}')
+        check_fit_step()
+    cosines = check_tf32_gradients()
     bf16_name = 'periodic_embed_bf16'
+    log("main path and bf16-table path: matmul_precision='bfloat16' (the "
+        "default), TF32 on in the steps and the render")
     main_launches, history, peak = drive(
         'main path', [k['name'] for k in kernels if k['name'] != bf16_name],
         N_iters=21)
-    bf16_launches, _, _ = drive(
+    bf16_launches, bf16_history, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
                             'robust_rho_fwd', 'robust_rho_bwd'],
         N_iters=11, embed_table='bfloat16')
@@ -490,7 +659,10 @@ def main():
     print(json.dumps({'kernels': kernels,
                       'fit': {'ms_per_step': [h['ms_per_step']
                                               for h in history],
-                              'peak_bytes': peak}}), flush=True)
+                              'bf16_table_ms_per_step': [
+                                  h['ms_per_step'] for h in bf16_history],
+                              'peak_bytes': peak},
+                      'tf32_gradient_cosine': cosines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

@@ -40,10 +40,10 @@ class BaseConfig:
                                      # default, adaptive.py:164); extended
                                      # schedules should raise it to ~0.01
     seed: int = 0
-    matmul_precision: str = "bfloat16"  # the port runs the MLP in f32 with
-                                        # TF32 off whatever this says (it
-                                        # prints so at fit start); honouring
-                                        # bf16 is queued in ROADMAP.md
+    matmul_precision: str = "bfloat16"  # the fit's steps and render: TF32
+                                        # on the card for the names JAX maps
+                                        # to DEFAULT/HIGH, full f32 for
+                                        # 'float32'/'highest' (device.py)
     feature_dtype: str = "float32"      # conv-tower activation dtype inside
                                         # the fit losses; the port runs f32
     canvas_multiple: int = 64           # pad images to this multiple (0 = off)

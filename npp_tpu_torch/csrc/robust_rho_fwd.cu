@@ -1,0 +1,288 @@
+// K4 forward: the row-wise weighted Barron rho,
+//
+//   r[m] = sum_c w_c * rho(x[m, c], alpha_c, s_c),
+//
+// for the `loss_otherwise` branch of general_lossfun with its beta_safe /
+// alpha_safe clamps, for up to five (x, alpha, s, w, r) segments in one
+// launch: the five LPIPS layers of a 'same' step go out together. Replaces
+// the XLA-fused per-element rho of `nllfun` (npp_tpu/losses/robust.py:63-81,
+// 134-138). kernels/robust_rho.py::rho_rows_plain is the same function in
+// PyTorch.
+//
+// Bound: memory. x is read once and r written once (39.9 MB at the LPIPS
+// layer-1 shape 153,600 x 64). What held the Triton kernel back, and what
+// this design does about it:
+//  - host time per launch: one launch for all segments. The segments are
+//    passed by value in the kernel's parameter struct (no host-to-device
+//    copy, so a CUDA graph can capture the launch); blocks map to segments
+//    by a prefix over the per-segment block counts;
+//  - lanes: where C % 4 == 0 and x is 16-byte aligned, a row is 2^k lanes
+//    of one warp (up to 32) with 16-byte loads, summed by an xor butterfly
+//    over those lanes. Otherwise (C = 3) the block walks a tile of rows as
+//    one flat array, one value per lane, and each thread then sums one row
+//    of the tile from shared memory; no lane is padding;
+//  - the grid fills the card once (as many blocks per SM as fit), shared
+//    out among the segments by their element counts, with a whole number of
+//    sweeps of rows per block;
+//  - bytes in flight: each thread issues the loads of four row groups
+//    before their arithmetic (vector path) or of its four values of a tile
+//    (flat path);
+//  - sums run in a fixed order (lane order, then the butterfly): no
+//    atomics, the same bits on every run.
+// rho = (beta/alpha_safe) expm1(alpha/2 log1p(sq/beta)): pow(u, alpha/2) - 1
+// cancels in f32 for small alpha. log1pf and expm1f are the precise ones:
+// cheaper forms (a corrected logf, series for small arguments) were as
+// accurate but no faster on an H100 (scripts/split_k4_fwd.py).
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kEps = 1.1920928955078125e-07f;   // np.finfo(np.float32).eps
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBlocksPerSm = 2048 / kThreads;
+constexpr int kMaxSegments = 5;
+constexpr int kMaxChannels = 1024;
+constexpr int kPerThread = 4;                   // flat path: values a thread
+constexpr int kTile = kThreads * kPerThread;    // holds in one tile
+constexpr int kUnroll = 4;   // vector path: row groups whose loads are in
+                             // flight together
+
+// One segment of the launch, as the kernel sees it.
+struct Segment {
+  const float* x;
+  const float* alpha;
+  const float* scale;
+  const float* w;
+  float* r;
+  long long m;
+  long long rows_per_block;
+  int c;
+  int lanes_log2;    // lanes per row = 2^lanes_log2; -1: the flat path
+  int per_lane;      // float4 a lane reads per row (vector path)
+  int block_begin;   // first block of this segment
+};
+
+struct Plan {
+  Segment seg[kMaxSegments];
+  int n;
+};
+
+// A channel's constants {1/s, alpha/2, 1/beta_safe, w beta_safe/alpha_safe}.
+__device__ __forceinline__ float4 channel_constants(const Segment& sp,
+                                                    int c) {
+  const float a = sp.alpha[c];
+  const float b = fmaxf(fabsf(a - 2.0f), kEps);
+  const float asafe = (a >= 0.0f ? 1.0f : -1.0f) * fmaxf(fabsf(a), kEps);
+  return make_float4(1.0f / sp.scale[c], 0.5f * a, 1.0f / b,
+                     sp.w[c] * (b / asafe));
+}
+
+// w_c rho(x, alpha_c, s_c) from the channel's constants k.
+__device__ __forceinline__ float rho_w(float x, float4 k) {
+  const float z = x * k.x;
+  return k.w * expm1f(k.y * log1pf(z * z * k.z));
+}
+
+// Vector path: 2^lanes_log2 lanes of a warp per row, per_lane float4 each.
+// A warp takes kUnroll groups of its rows at a time, a block sweep apart,
+// and issues their loads before their arithmetic: with one load in flight
+// per thread the kernel read 39 MB in 29 us with no arithmetic at all
+// (scripts/split_k4_fwd.py on an H100).
+__device__ __forceinline__ void rows_vec(const Segment& sp,
+                                         const float4* consts,
+                                         long long row0, long long row_end) {
+  const int lanes_log2 = sp.lanes_log2;
+  const int lanes = 1 << lanes_log2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int sub = lane >> lanes_log2;          // row within the warp's rows
+  const int j = lane & (lanes - 1);            // lane within the row
+  const int rows_per_warp = 32 >> lanes_log2;
+  const long long sweep = (long long)rows_per_warp * kWarps;
+  const int n4 = sp.c >> 2;
+  const float4* x4 = reinterpret_cast<const float4*>(sp.x);
+  // `base` is the same on every lane of a warp, so all of them reach the
+  // shuffles
+  for (long long base = row0 + (long long)warp * rows_per_warp;
+       base < row_end; base += sweep * kUnroll) {
+    float acc[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) acc[u] = 0.0f;
+    for (int k = 0; k < sp.per_lane; ++k) {
+      const int i = j + (k << lanes_log2);
+      if (i >= n4) break;
+      float4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long row = base + u * sweep + sub;
+        v[u] = row < row_end ? __ldg(x4 + row * n4 + i)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+      const float4 k0 = consts[4 * i], k1 = consts[4 * i + 1];
+      const float4 k2 = consts[4 * i + 2], k3 = consts[4 * i + 3];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        acc[u] += rho_w(v[u].x, k0);
+        acc[u] += rho_w(v[u].y, k1);
+        acc[u] += rho_w(v[u].z, k2);
+        acc[u] += rho_w(v[u].w, k3);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float a = acc[u];
+      for (int off = lanes >> 1; off > 0; off >>= 1)
+        a += __shfl_xor_sync(0xffffffffu, a, off);
+      const long long row = base + u * sweep + sub;
+      if (row < row_end && j == 0) sp.r[row] = a;
+    }
+  }
+}
+
+// Flat path: tiles of min(256, kTile / c) rows, read as one flat array of
+// values (thread t takes values t, t + 256, ...), w rho into shared memory,
+// then thread t sums row t of the tile in channel order.
+__device__ __forceinline__ void rows_flat(const Segment& sp,
+                                          const float4* consts, float* tile,
+                                          long long row0, long long row_end) {
+  const int c = sp.c;
+  const int tid = threadIdx.x;
+  const int tile_rows = min(kThreads, kTile / c);
+  const int ch0 = tid % c;
+  const int ch_step = kThreads % c;
+  for (long long t0 = row0; t0 < row_end; t0 += tile_rows) {
+    const int rows = (int)min((long long)tile_rows, row_end - t0);
+    const int n = rows * c;
+    const float* xs = sp.x + t0 * c;
+    float xv[kPerThread];
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int e = tid + i * kThreads;
+      xv[i] = e < n ? __ldg(xs + e) : 0.0f;
+    }
+    int ch = ch0;
+#pragma unroll
+    for (int i = 0; i < kPerThread; ++i) {
+      const int e = tid + i * kThreads;
+      if (e < n) tile[e] = rho_w(xv[i], consts[ch]);
+      ch += ch_step;
+      if (ch >= c) ch -= c;
+    }
+    __syncthreads();
+    for (int rr = tid; rr < rows; rr += kThreads) {
+      float acc = 0.0f;
+      for (int k = 0; k < c; ++k) acc += tile[rr * c + k];
+      sp.r[t0 + rr] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+rho_fwd_group_kernel(const Plan plan) {
+  __shared__ float4 consts[kMaxChannels];
+  __shared__ float tile[kTile];
+  const int b = blockIdx.x;
+  // this block's segment: the last one that begins at or before it (a
+  // segment of no rows has no blocks, and begins where the next one does)
+  Segment sp = plan.seg[0];
+#pragma unroll
+  for (int s = 1; s < kMaxSegments; ++s)
+    if (s < plan.n && b >= plan.seg[s].block_begin) sp = plan.seg[s];
+  for (int ch = threadIdx.x; ch < sp.c; ch += kThreads)
+    consts[ch] = channel_constants(sp, ch);
+  __syncthreads();
+  const long long row0 = (long long)(b - sp.block_begin) * sp.rows_per_block;
+  const long long row_end = min(sp.m, row0 + sp.rows_per_block);
+  if (sp.lanes_log2 >= 0)
+    rows_vec(sp, consts, row0, row_end);
+  else
+    rows_flat(sp, consts, tile, row0, row_end);
+}
+
+// Resident blocks of the kernel per SM, at most kMaxBlocksPerSm; asked of
+// the runtime once.
+int blocks_per_sm() {
+  static int n = 0;
+  if (n == 0) {
+    int got = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &got, rho_fwd_group_kernel, kThreads, 0) != cudaSuccess ||
+        got <= 0)
+      got = 1;
+    n = got < kMaxBlocksPerSm ? got : kMaxBlocksPerSm;
+  }
+  return n;
+}
+
+}  // namespace
+
+// One segment as the caller passes it: x (m, c) row-major, alpha, scale,
+// w (c,), r (m,), all float32 on the card.
+struct RhoSegment {
+  const float* x;
+  const float* alpha;
+  const float* scale;
+  const float* w;
+  float* r;
+  long long m;
+  long long c;
+};
+
+// r of each of the n (1 to 5) segments, in one launch on `stream`. Each c
+// is 1 to 1024. Returns cudaGetLastError() (0 on success).
+extern "C" int npp_robust_rho_fwd_group(const RhoSegment* segs, int n,
+                                        int sm_count, void* stream) {
+  if (n < 1 || n > kMaxSegments || sm_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  double total = 0.0;
+  for (int s = 0; s < n; ++s) {
+    if (segs[s].c < 1 || segs[s].c > kMaxChannels || segs[s].m < 0)
+      return (int)cudaErrorInvalidValue;
+    total += (double)segs[s].m * (double)segs[s].c;
+  }
+  if (total == 0.0) return (int)cudaGetLastError();
+  const double target = (double)blocks_per_sm() * sm_count;
+  Plan plan = {};
+  plan.n = n;
+  long long begin = 0;
+  for (int s = 0; s < n; ++s) {
+    const RhoSegment& in = segs[s];
+    Segment& d = plan.seg[s];
+    d.x = in.x;
+    d.alpha = in.alpha;
+    d.scale = in.scale;
+    d.w = in.w;
+    d.r = in.r;
+    d.m = in.m;
+    d.c = (int)in.c;
+    long long sweep;   // rows a block takes in one pass of its loop
+    if (d.c % 4 == 0 && (reinterpret_cast<uintptr_t>(in.x) & 15) == 0) {
+      const int n4 = d.c / 4;
+      int lanes_log2 = 0;
+      while ((1 << lanes_log2) < n4 && lanes_log2 < 5) ++lanes_log2;
+      d.lanes_log2 = lanes_log2;
+      d.per_lane = (n4 + (1 << lanes_log2) - 1) >> lanes_log2;
+      sweep = (long long)(32 >> lanes_log2) * kWarps * kUnroll;
+    } else {
+      d.lanes_log2 = -1;
+      d.per_lane = 0;
+      sweep = kTile / d.c < kThreads ? kTile / d.c : kThreads;
+    }
+    // this segment's share of one full wave of blocks
+    long long share = (long long)(target * ((double)in.m * in.c) / total +
+                                  0.5);
+    if (share < 1) share = 1;
+    const long long sweeps = (in.m + sweep - 1) / sweep;
+    d.rows_per_block = (sweeps + share - 1) / share * sweep;
+    d.block_begin = (int)begin;
+    if (in.m > 0) begin += (in.m + d.rows_per_block - 1) / d.rows_per_block;
+  }
+  if (begin > 0)
+    rho_fwd_group_kernel<<<(unsigned)begin, kThreads, 0,
+                           (cudaStream_t)stream>>>(plan);
+  return (int)cudaGetLastError();
+}

@@ -1,4 +1,5 @@
-"""Device resolution for the port's entry points.
+"""Device resolution for the port's entry points, and the matmul precision
+scope of the fit.
 
 Entry points run on the card unless the caller asks for the CPU. With no
 card and no explicit CPU request they raise: a silent CPU fallback would
@@ -6,7 +7,8 @@ report CPU results as if they came from the card.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -22,8 +24,40 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def set_reference_precision() -> None:
-    """Full-f32 matmuls and convolutions on the card: the port runs the fit
-    in f32 (TF32 keeps about three decimal digits)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+# matmul_precision names as jax.default_matmul_precision takes them, and
+# whether each lets the card's f32 matmuls and convolutions run in TF32:
+# JAX maps the first six to Precision.DEFAULT or HIGH, which on a card with
+# TF32 tensor cores is TF32, and the last two to HIGHEST, full f32.
+TF32_BY_PRECISION = {
+    'bfloat16': True, 'default': True, 'fastest': True, 'tensorfloat32': True,
+    'bfloat16_3x': True, 'high': True, 'float32': False, 'highest': False}
+
+
+def allows_tf32(name: str) -> bool:
+    """Whether matmul_precision `name` lets f32 run in TF32; raises
+    ValueError for a name JAX does not take."""
+    try:
+        return TF32_BY_PRECISION[name]
+    except KeyError:
+        raise ValueError(
+            f'matmul_precision {name!r} is not one of '
+            f'{sorted(TF32_BY_PRECISION)}') from None
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str) -> Iterator[None]:
+    """Within the block, f32 matmuls (cuBLAS) and convolutions (cuDNN) on the
+    card run in TF32 or in full f32 as `name` says (allows_tf32); the
+    previous settings come back on exit. PyTorch reads the flags when each
+    kernel launches, so a backward must run inside the block too. CPU
+    results do not change."""
+    tf32 = allows_tf32(name)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

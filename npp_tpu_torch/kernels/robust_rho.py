@@ -1,5 +1,5 @@
-"""K4: row-wise weighted Barron rho; forward in Triton, backward in CUDA C++
-(csrc/robust_rho_bwd.cu).
+"""K4: row-wise weighted Barron rho, forward and backward in CUDA C++
+(csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu).
 
 Replaces the per-element rho of `nllfun` (npp_tpu/losses/robust.py:63-81,
 134-138) that XLA fused into the adaptive pixel loss (losses/pixel.py) and
@@ -12,36 +12,33 @@ alpha_safe. Adaptive alpha lies in (0.001, 1.999), where that branch is the
 whole function. The per-channel constant log s_c + log Z(alpha_c) and the
 latent -> (alpha, s) maps stay plain torch with autograd (losses/robust.py).
 
-Bound: memory. The forward reads x (M, C) once and writes r (M,): a
-(BLOCK_M, BLOCK_C) tile per program with the whole channel row in
-registers, so the channel sum is a register reduction. The backward reads
-x and g and writes dx, and sums dalpha and ds per channel on the device in
-a fixed order (see the source's note). Its alpha derivative is computed in
-f32 in forms without the cancellation of the direct one;
-`rho_bwd_plain` is the same arithmetic in PyTorch, line by line.
+Bound: memory. The forward reads x (M, C) once and writes r (M,), for up
+to five (x, alpha, s, w) segments in one launch (`rho_rows_group`: the five
+LPIPS layers of a step). The backward reads x and g and writes dx, one
+launch per segment, and sums dalpha and ds per channel on the device in a
+fixed order. Each source's note gives its design. The backward's alpha
+derivative is computed in f32 in forms without the cancellation of the
+direct one; `rho_bwd_plain` is the same arithmetic in PyTorch, line by
+line.
 
 A CUDA tensor goes through the kernels or the call raises; a CPU tensor goes
 through `rho_rows_plain` with autograd.
-
-(No `from __future__ import annotations` here: Triton reads the
-`tl.constexpr` annotations of the jitted kernels as objects.)
 """
 import collections
 import ctypes
 import functools
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from .build import check_cuda, load_library, triton_setup
+from .build import check_cuda, load_library
 
-# launches by kernel and shape, keyed 'robust_rho_fwd[MxC]'
+# launches by kernel and shape, keyed 'robust_rho_fwd[MxC]',
+# 'robust_rho_fwd_group[MxC,MxC,...]' or 'robust_rho_bwd[MxC]'
 LAUNCHES = collections.Counter()
 F32_EPS = float(np.finfo(np.float32).eps)
-
-# Set at the first launch (_kernels); the jitted kernel reads them as
-# module globals.
-triton = tl = tld = None
+MAX_SEGMENTS = 5     # segments of one forward launch (csrc/robust_rho_fwd.cu)
 
 
 def rho_otherwise(x: torch.Tensor, alpha: torch.Tensor,
@@ -119,53 +116,59 @@ def rho_bwd_plain(g: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
             torch.sum(-(gsq2 * sq * inv_s), 0))
 
 
+class _Segment(ctypes.Structure):
+    """csrc/robust_rho_fwd.cu's RhoSegment: x, alpha, scale, w, r, m, c."""
+    _fields_ = [('x', ctypes.c_void_p), ('alpha', ctypes.c_void_p),
+                ('scale', ctypes.c_void_p), ('w', ctypes.c_void_p),
+                ('r', ctypes.c_void_p), ('m', ctypes.c_longlong),
+                ('c', ctypes.c_longlong)]
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels():
-    global triton, tl, tld
-    triton, tl, tld = triton_setup()
-
-    @triton.jit
-    def rho_fwd_kernel(x_ptr, a_ptr, s_ptr, w_ptr, r_ptr, M, C,
-                       EPS: tl.constexpr, BLOCK_M: tl.constexpr,
-                       BLOCK_C: tl.constexpr):
-        rows = tl.program_id(0).to(tl.int64) * BLOCK_M + tl.arange(0, BLOCK_M)
-        cols = tl.arange(0, BLOCK_C)
-        rm = rows < M
-        cm = cols < C
-        m2 = rm[:, None] & cm[None, :]
-        x = tl.load(x_ptr + rows[:, None] * C + cols[None, :], mask=m2,
-                    other=0.0)
-        a = tl.load(a_ptr + cols, mask=cm, other=1.0)[None, :]
-        s = tl.load(s_ptr + cols, mask=cm, other=1.0)[None, :]
-        w = tl.load(w_ptr + cols, mask=cm, other=0.0)[None, :]
-        beta = tl.maximum(tl.abs(a - 2.0), EPS)
-        asafe = tl.where(a >= 0, 1.0, -1.0) * tl.maximum(tl.abs(a), EPS)
-        z = x / s
-        # u^(alpha/2) - 1 as expm1(alpha/2 log1p(sq/beta)): pow(u, alpha/2)
-        # - 1 cancels in f32 for small alpha (at alpha = 0.001 the kernel
-        # then lost to the plain version)
-        rho = (beta / asafe) * tld.expm1(0.5 * a * tld.log1p(z * z / beta))
-        r = tl.sum(tl.where(m2, rho * w, 0.0), axis=1)
-        tl.store(r_ptr + rows, r, mask=rm)
-
-    return rho_fwd_kernel
+def _fwd_fn():
+    fn = load_library('robust_rho_fwd').npp_robust_rho_fwd_group
+    fn.argtypes = [ctypes.POINTER(_Segment), ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def _blocks(c: int):
-    block_c = max(2, 1 << (c - 1).bit_length())
-    return max(16, 4096 // block_c), block_c
+@functools.lru_cache(maxsize=None)
+def _fwd_key(shapes) -> str:
+    """The launch count's key for segments of these (M, C) shapes."""
+    names = ','.join(f'{m}x{c}' for m, c in shapes)
+    return (f'robust_rho_fwd[{names}]' if len(shapes) == 1
+            else f'robust_rho_fwd_group[{names}]')
+
+
+def rho_fwd_group_launch(segments):
+    """r of each (x, alpha, scale, w) in `segments` (1 to MAX_SEGMENTS), in
+    one launch of csrc/robust_rho_fwd.cu. Counted under
+    'robust_rho_fwd[MxC]' for one segment and
+    'robust_rho_fwd_group[MxC,MxC,...]' for more. The host's work per
+    call is most of the launch's time at the main path's small shapes, so
+    it is kept to the pointers, one torch.empty per output and the call."""
+    n = len(segments)
+    dev = segments[0][0].device
+    outs = []
+    arr = (_Segment * n)()
+    for i, (x, alpha, scale, w) in enumerate(segments):
+        m, c = x.shape
+        r = torch.empty((m,), dtype=torch.float32, device=dev)
+        arr[i] = _Segment(x.data_ptr(), alpha.data_ptr(), scale.data_ptr(),
+                          w.data_ptr(), r.data_ptr(), m, c)
+        outs.append(r)
+    status = _fwd_fn()(
+        arr, n, _sm_count(dev.index),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    check_cuda(status, 'robust_rho_fwd')
+    LAUNCHES[_fwd_key(tuple(s[0].shape for s in segments))] += 1
+    return outs
 
 
 def rho_fwd_launch(x, alpha, scale, w):
-    m, c = x.shape
-    block_m, block_c = _blocks(c)
-    fwd = _kernels()
-    r = torch.empty((m,), dtype=torch.float32, device=x.device)
-    fwd[(triton.cdiv(m, block_m),)](x, alpha, scale, w, r, m, c, EPS=F32_EPS,
-                                    BLOCK_M=block_m, BLOCK_C=block_c,
-                                    num_warps=4)
-    LAUNCHES[f'robust_rho_fwd[{m}x{c}]'] += 1
-    return r
+    """r of one (x, alpha, scale, w) on the card; csrc/robust_rho_fwd.cu."""
+    return rho_fwd_group_launch(((x, alpha, scale, w),))[0]
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -212,34 +215,65 @@ def rho_bwd_launch(g, x, alpha, scale, w):
     return dx, da, ds
 
 
-class _RhoRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, alpha, scale, w):
-        ctx.save_for_backward(x, alpha, scale, w)
-        return rho_fwd_launch(x, alpha, scale, w)
+class _RhoRowsGroup(torch.autograd.Function):
+    """Segments flattened as (x, alpha, scale, w, x, alpha, ...): one
+    forward launch for all of them, one backward launch per segment."""
 
     @staticmethod
-    def backward(ctx, g):
-        x, alpha, scale, w = ctx.saved_tensors
-        dx, da, ds = rho_bwd_launch(g, x, alpha, scale, w)
-        return dx, da, ds, None
+    def forward(ctx, *flat):
+        ctx.save_for_backward(*flat)
+        return tuple(rho_fwd_group_launch(
+            [flat[i:i + 4] for i in range(0, len(flat), 4)]))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        grads = []
+        for i, g in enumerate(gs):
+            x, alpha, scale, w = saved[4 * i:4 * i + 4]
+            grads += [*rho_bwd_launch(g, x, alpha, scale, w), None]
+        return tuple(grads)
+
+
+def rho_rows_group_plain(xs, alphas, scales, ws) -> List[torch.Tensor]:
+    """rho_rows_plain of each segment."""
+    return [rho_rows_plain(*seg) for seg in zip(xs, alphas, scales, ws)]
+
+
+def rho_rows_group(xs: Sequence[torch.Tensor], alphas: Sequence[torch.Tensor],
+                   scales: Sequence[torch.Tensor],
+                   ws: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """rho_rows of up to MAX_SEGMENTS segments: x_i (M_i, C_i); alpha_i,
+    scale_i, w_i (C_i,) -> [(M_i,)]. On the card, one forward launch for
+    all of them. Differentiable in x, alpha and scale; w is a constant."""
+    segs = list(zip(xs, alphas, scales, ws))
+    if not 1 <= len(segs) <= MAX_SEGMENTS or \
+            not len(xs) == len(alphas) == len(scales) == len(ws):
+        raise ValueError(f'rho_rows_group takes 1 to {MAX_SEGMENTS} '
+                         'segments of (x, alpha, scale, w)')
+    kinds = {t.device.type for seg in segs for t in seg}
+    if kinds == {'cpu'}:
+        return rho_rows_group_plain(xs, alphas, scales, ws)
+    if kinds != {'cuda'}:
+        raise RuntimeError(f'rho_rows: unsupported devices {kinds}')
+    flat = []
+    for x, alpha, scale, w in segs:
+        c = x.shape[-1]
+        if x.dim() != 2 or any(t.shape != (c,) for t in (alpha, scale, w)):
+            raise ValueError('rho_rows takes x (M, C) and alpha, scale, w '
+                             '(C,)')
+        if any(t.dtype != torch.float32 for t in (x, alpha, scale, w)):
+            raise ValueError('rho_rows takes float32 tensors')
+        if c > bwd_max_channels(c):
+            raise ValueError(f'rho_rows takes at most {bwd_max_channels(c)} '
+                             f'channels here, got {c}')
+        flat += [x.contiguous(), alpha.contiguous(), scale.contiguous(),
+                 w.detach().contiguous()]
+    return list(_RhoRowsGroup.apply(*flat))
 
 
 def rho_rows(x: torch.Tensor, alpha: torch.Tensor, scale: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
     """x (M, C); alpha, scale, w (C,) -> (M,) sum_c w_c rho(x, alpha_c, s_c).
     Differentiable in x, alpha and scale; w is a constant."""
-    if x.device.type == 'cpu':
-        return rho_rows_plain(x, alpha, scale, w)
-    if x.device.type != 'cuda':
-        raise RuntimeError(f'rho_rows: unsupported device {x.device}')
-    c = x.shape[-1]
-    if x.dim() != 2 or any(t.shape != (c,) for t in (alpha, scale, w)):
-        raise ValueError('rho_rows takes x (M, C) and alpha, scale, w (C,)')
-    if any(t.dtype != torch.float32 for t in (x, alpha, scale, w)):
-        raise ValueError('rho_rows takes float32 tensors')
-    if c > bwd_max_channels(c):
-        raise ValueError(f'rho_rows takes at most {bwd_max_channels(c)} '
-                         f'channels here, got {c}')
-    return _RhoRows.apply(x.contiguous(), alpha.contiguous(),
-                          scale.contiguous(), w.detach().contiguous())
+    return rho_rows_group((x,), (alpha,), (scale,), (w,))[0]

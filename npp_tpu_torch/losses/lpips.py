@@ -3,8 +3,8 @@
 Port of `npp_tpu/losses/lpips.py` (reference: externel_lib/lpips/lpips.py:
 27-133) for the VGG net in non-spatial mode, including the repo's per-layer
 adaptive-robust diffs (`use_robust`, lpips.py:103-113), whose rho goes
-through K4 (losses/robust.py::weighted_nll_rows) with the lin head as the
-channel weight. Spatial mode and the alex and squeeze nets are not ported
+through K4 (losses/robust.py::weighted_nll_rows_group, one forward launch
+for the five layers) with the lin head as the channel weight. Spatial mode and the alex and squeeze nets are not ported
 yet.
 """
 from __future__ import annotations
@@ -18,7 +18,8 @@ from torch import nn
 from ..nn.features import (VGG16_BLOCKS, VGG16_LPIPS_TAPS, VGGFeatures,
                            vgg_conv_shapes)
 from ..nn.pretrained import load_lpips_lins, load_tower_params
-from .robust import AdaptiveLossParams, adaptive_init, weighted_nll_rows
+from .robust import (AdaptiveLossParams, adaptive_init,
+                     weighted_nll_rows_group)
 
 _SHIFT = np.asarray([-0.030, -0.088, -0.188], np.float32)
 _SCALE = np.asarray([0.458, 0.448, 0.450], np.float32)
@@ -78,17 +79,21 @@ class LPIPS:
         feats0 = self.features(in0)
         feats1 = self.features(in1)
 
+        diffs = [normalize_tensor(f0) - normalize_tensor(f1)
+                 for f0, f1 in zip(feats0, feats1)]
+        if use_robust:
+            if adaptive is None:
+                raise ValueError('use_robust requires adaptive params')
+            # one K4 forward launch for all the layers
+            rows = weighted_nll_rows_group(
+                [d.reshape(-1, d.shape[-1]) for d in diffs], adaptive,
+                self.lins)
+        else:
+            rows = [torch.sum(torch.square(d) * lin, dim=-1)
+                    for d, lin in zip(diffs, self.lins)]
         val = None
-        for kk, (f0, f1) in enumerate(zip(feats0, feats1)):
-            d = normalize_tensor(f0) - normalize_tensor(f1)
-            n, h, w, c = d.shape
-            if use_robust:
-                if adaptive is None:
-                    raise ValueError('use_robust requires adaptive params')
-                rows = weighted_nll_rows(d.reshape(-1, c), adaptive[kk],
-                                         self.lins[kk])
-            else:
-                rows = torch.sum(torch.square(d) * self.lins[kk], dim=-1)
-            m = torch.mean(rows.reshape(n, h * w), dim=1).reshape(n, 1, 1, 1)
+        for d, r in zip(diffs, rows):
+            n, h, w = d.shape[:3]
+            m = torch.mean(r.reshape(n, h * w), dim=1).reshape(n, 1, 1, 1)
             val = m if val is None else val + m
         return val

@@ -8,20 +8,22 @@ an `nn.Module` (AdaptiveLossParams) whose parameters ride the fit's Adam.
 The log-partition spline is the reference's `partition_spline.npz`, with
 the port's own copy under npp_tpu_torch/assets/.
 
-`weighted_nll_rows` is the adaptive losses' hot path: its per-element rho
-goes through K4 (kernels/robust_rho.py) for CUDA tensors, and the
-per-channel constant log s + log Z(alpha) stays here with autograd.
+`weighted_nll_rows` (and `weighted_nll_rows_group`, several at once) is the
+adaptive losses' hot path: its per-element rho goes through K4
+(kernels/robust_rho.py) for CUDA tensors, and the per-channel constant
+log s + log Z(alpha) stays here with autograd.
 """
 from __future__ import annotations
 
 import functools
 import os
+from typing import List, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.robust_rho import rho_otherwise, rho_rows
+from ..kernels.robust_rho import rho_otherwise, rho_rows_group
 
 _LOG_MAX = 33e37
 _EXP_MAX = 87.5
@@ -146,14 +148,23 @@ def adaptive_scale(p: AdaptiveLossParams, scale_lo=1e-5, scale_init=1.0):
     return affine_softplus(p.latent_scale, scale_lo, scale_init)
 
 
+def weighted_nll_rows_group(xs: Sequence[torch.Tensor],
+                            ps: Sequence[AdaptiveLossParams],
+                            ws: Sequence[torch.Tensor],
+                            scale_lo: float = 1e-5) -> List[torch.Tensor]:
+    """weighted_nll_rows of each (x, p, w): the rho terms of all of them go
+    through one K4 forward launch on the card (rho_rows_group)."""
+    alphas = [adaptive_alpha(p)[0] for p in ps]
+    scales = [adaptive_scale(p, scale_lo=scale_lo)[0] for p in ps]
+    rows = rho_rows_group(xs, alphas, scales, ws)
+    return [r + torch.sum(w * (torch.log(s) + log_base_partition_function(a)))
+            for r, a, s, w in zip(rows, alphas, scales, ws)]
+
+
 def weighted_nll_rows(x: torch.Tensor, p: AdaptiveLossParams,
                       w: torch.Tensor, scale_lo: float = 1e-5) -> torch.Tensor:
     """x (M, C) -> (M,) sum_c w_c * nll(x[m, c], alpha_c, s_c) with the
     adaptive alpha and scale of `p` (adaptive.py:182-204 summed over
     channels with weights w). The rho term goes through K4; the
     per-channel constant is added once per row."""
-    alpha = adaptive_alpha(p)[0]
-    scale = adaptive_scale(p, scale_lo=scale_lo)[0]
-    const = torch.sum(w * (torch.log(scale) +
-                           log_base_partition_function(alpha)))
-    return rho_rows(x, alpha, scale, w) + const
+    return weighted_nll_rows_group((x,), (p,), (w,), scale_lo)[0]

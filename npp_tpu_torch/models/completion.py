@@ -11,7 +11,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import matmul_precision, resolve_device
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse, mse2psnr
 from ..utils.io import write_rgb
@@ -107,8 +107,9 @@ def run_completion(cfg, save: bool = True, device=None,
     result = fit_image(cfg, data, eval_hook=eval_hook, log_every=cfg.i_print,
                        device=device)
     params = result.state.params
-    final = evaluate(data, params, result.render, params.adaptive_pix,
-                     cfg.loss_type, device)
+    with matmul_precision('float32'):    # the render sets its own
+        final = evaluate(data, params, result.render, params.adaptive_pix,
+                         cfg.loss_type, device)
     final['snapshot_iter'] = cfg.N_iters - 1
 
     # final LPIPS of the composite vs gt (absolute values need converted
@@ -119,7 +120,7 @@ def run_completion(cfg, save: bool = True, device=None,
                            device=device)[None]
     gt = torch.as_tensor((data.img * data.valid_mask)[:oh, :ow],
                          dtype=torch.float32, device=device)[None]
-    with torch.no_grad():
+    with torch.no_grad(), matmul_precision('float32'):
         final['val_lpips'] = float(torch.mean(percep(comp, gt, normalize=True)))
     if save:
         _save(os.path.join(save_dir, 'testset_final'), final,

@@ -11,7 +11,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device, set_reference_precision
+from ..device import allows_tf32, matmul_precision, resolve_device
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..nn.embedder import TaskEmbedder, make_task_embedder
@@ -111,17 +111,26 @@ def fit_image(cfg, data: TaskData,
     """The reference's per-image training loop (NPP_completion/train.py:
     133-264). Runs on the card unless device='cpu' is passed. The history
     records, per log, the metrics and the wall ms per step of the block
-    that ended there (synchronised, eval excluded). Checkpoints are not
-    ported yet: a checkpoint_dir raises."""
+    that ended there (synchronised, eval excluded). The steps and the
+    render run under cfg.matmul_precision, everything else in full f32.
+    Checkpoints are not ported yet: a checkpoint_dir raises."""
     if checkpoint_dir:
         raise NotImplementedError(
             'checkpoints are not ported to npp_tpu_torch yet (see ROADMAP.md)')
     device = resolve_device(device)
     check_slice(cfg)
-    if device.type == 'cuda':
-        set_reference_precision()
-    print(f'[fit] matmul_precision={cfg.matmul_precision!r} is not honoured '
-          f'yet: the MLP runs in float32 with TF32 off', flush=True)
+    tf32 = allows_tf32(cfg.matmul_precision)
+    print(f'[fit] matmul_precision={cfg.matmul_precision!r}: on the card, '
+          f'the steps and the render run f32 matmuls and convolutions '
+          f'{"in TF32" if tf32 else "in full f32"}, the rest in full f32',
+          flush=True)
+    # full f32 outside the steps and the render, which set their own
+    with matmul_precision('float32'):
+        return _fit(cfg, data, eval_hook, log_every, device)
+
+
+def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device
+         ) -> FitResult:
     comps = build_components(cfg, data, device)
     state = init_fit_state(cfg, comps.model, comps.percep, device)
     render = make_render(cfg, comps.embedder)

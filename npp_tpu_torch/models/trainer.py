@@ -11,6 +11,9 @@ from the JAX package, and why:
    by momentum; torch.optim.Adam skips a parameter whose .grad is None and
    does not advance its moments, so every step hands Adam an explicit zero
    gradient for each parameter the loss did not reach.
+ - cfg.matmul_precision scopes the fit's steps (forward and backward) and
+   the render, as in npp_tpu: TF32 on the card for the names JAX maps to
+   DEFAULT or HIGH ('bfloat16', the default), full f32 for 'float32'.
  - The learning rate is set on the optimizer before each step: step k
    (0-based count of updates so far) uses lr0 * 0.1^(k / (lrate_decay*100)),
    optax's schedule(count) convention (trainer.py:72-73).
@@ -23,6 +26,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from ..device import matmul_precision
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
@@ -217,17 +221,21 @@ def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
 def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
                    patch_num: int, patch_size: int, block: int):
     """run_block(state, gen) -> last step's metrics, after `block` steps.
-    With cfg.embed_table the canvas embedding is built once per block."""
+    With cfg.embed_table the canvas embedding is built once per block. The
+    steps run under cfg.matmul_precision (device.py::matmul_precision)."""
     loss_fn = build_loss_fn(cfg, percep, contextual, patch_num, patch_size)
     schedule = make_schedule(cfg)
     dtype = table_dtype(cfg, embedder, block)
 
     def run_block(state: FitState, gen: torch.Generator):
-        emb = embedder if dtype is None else \
-            make_embedding_table(embedder, dtype)
-        metrics = None
-        for _ in range(block):
-            metrics = fit_step(state, loss_fn, emb, consts, gen, schedule)
+        # npp_tpu's scope (trainer.py:139-146): every matmul and convolution
+        # of the loss and of its gradient, so loss.backward() as well
+        with matmul_precision(cfg.matmul_precision):
+            emb = embedder if dtype is None else \
+                make_embedding_table(embedder, dtype)
+            metrics = None
+            for _ in range(block):
+                metrics = fit_step(state, loss_fn, emb, consts, gen, schedule)
         return metrics
 
     return run_block
@@ -236,7 +244,8 @@ def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
 def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
     """Chunked full-frame renderer (replaces the reference's chunk=20000
     eval loops, NPP_completion/train.py:277-308): render(params, h, w)
-    -> (H, W, 3)."""
+    -> (H, W, 3), under cfg.matmul_precision as npp_tpu's render
+    (trainer.py:355-358)."""
 
     @torch.no_grad()
     def render(params: FitParams, h: int, w: int) -> torch.Tensor:
@@ -244,9 +253,10 @@ def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
         ys, xs = torch.meshgrid(torch.arange(h, device=dev),
                                 torch.arange(w, device=dev), indexing='ij')
         coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
-        out = [render_activation(params.mlp(embedder.embed(c)),
-                                 cfg.normalize_type)
-               for c in coords.split(chunk)]
+        with matmul_precision(cfg.matmul_precision):
+            out = [render_activation(params.mlp(embedder.embed(c)),
+                                     cfg.normalize_type)
+                   for c in coords.split(chunk)]
         return torch.cat(out, 0).reshape(h, w, 3)
 
     return render

@@ -1,8 +1,12 @@
 """Where a fit step's device time goes, for the PyTorch port on one CUDA card.
 
-    python3 scripts/profile_torch_fit.py [--blocks 2] [--out FILE]
+    python3 scripts/profile_torch_fit.py [--blocks 2]
+                                         [--matmul_precision bfloat16]
+                                         [--out FILE]
 
-Builds the main path's fit (default CompletionConfig widths, the 384x512
+Builds the main path's fit (default CompletionConfig widths and
+matmul_precision, or the one given: 'bfloat16' runs the steps' f32 matmuls
+and convolutions in TF32, 'float32' in full f32; the 384x512
 synthetic example of npp_tpu_torch/utils/synthetic.py, blocks of 10 steps
 with the per-block embedding table), runs one block to warm up (kernel
 builds, cuDNN's algorithm choice), then profiles `--blocks` more blocks with
@@ -22,11 +26,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUPS = (  # first match wins; names as the profiler reports kernels
     ('K1 periodic_embed', ('periodic_embed_kernel',)),
     ('K2 bias_snake', ('snake_fwd_kernel', 'snake_bwd_kernel')),
-    ('K4 robust_rho', ('rho_fwd_kernel', 'rho_bwd_kernel',
+    ('K4 robust_rho', ('rho_fwd_group_kernel', 'rho_bwd_kernel',
                        'rho_bwd_finish')),
+    # cuDNN's tensor-core (TF32) convolutions add layout transforms, its
+    # FFT convolutions fft2d_* kernels
     ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fprop', 'dgrad',
-              'wgrad')),
-    ('matmul', ('gemm', 'xmma', 'cutlass', 'sm90_')),
+              'wgrad', 'nchwtonhwc', 'nhwctonchw', 'fft2d')),
+    # cuBLAS's Hopper GEMMs are named nvjet_* in recent releases
+    ('matmul', ('gemm', 'xmma', 'cutlass', 'sm90_', 'nvjet', 'splitkreduce')),
 )
 
 
@@ -41,6 +48,9 @@ def group_of(name):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--blocks', type=int, default=2)
+    ap.add_argument('--matmul_precision', default=None,
+                    help="the fit's matmul_precision (default: "
+                         "CompletionConfig's)")
     ap.add_argument('--out', default=os.path.join(ROOT, 'chiprun_out',
                                                   'profile_torch_fit.json'))
     args = ap.parse_args(argv)
@@ -50,15 +60,16 @@ def main(argv=None):
         sys.exit('profile_torch_fit: needs a CUDA card')
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
-    from npp_tpu_torch.config import CompletionConfig
-    from npp_tpu_torch.device import set_reference_precision
+    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.trainer import init_fit_state, make_fit_block
     from npp_tpu_torch.utils.synthetic import synthetic_data
 
-    set_reference_precision()
     dev = torch.device('cuda')
     cfg = CompletionConfig()
+    if args.matmul_precision:
+        cfg = replace(cfg, matmul_precision=args.matmul_precision)
     data = synthetic_data(0)
     comps = build_components(cfg, data, dev)
     state = init_fit_state(cfg, comps.model, comps.percep, dev)
@@ -68,16 +79,18 @@ def main(argv=None):
                                comps.contextual, cfg.patch_num,
                                data.patch_size, block)
     gen = torch.Generator().manual_seed(cfg.seed + 1)
-    run_block(state, gen)
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(args.blocks):
-            run_block(state, gen)
+    # outside the steps (which set cfg's precision), full f32 as in a fit
+    with matmul_precision('float32'):
+        run_block(state, gen)
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.time() - t0)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(args.blocks):
+                run_block(state, gen)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.time() - t0)
     steps = args.blocks * block
 
     kernels = {}
@@ -96,9 +109,12 @@ def main(argv=None):
         g = group_of(name)
         groups[g] = groups.get(g, 0.0) + ms / steps
     device_ms = sum(ms for ms, _ in kernels.values())
+    if abs(sum(groups.values()) - device_ms / steps) > 1e-6 * device_ms:
+        sys.exit('profile_torch_fit: the groups do not sum to the total')
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     out = {
         'device': torch.cuda.get_device_name(0), 'steps': steps,
+        'matmul_precision': cfg.matmul_precision,
         'wall_ms_per_step': wall_ms / steps,
         'device_ms_per_step': device_ms / steps,
         'busy_share': device_ms / wall_ms,

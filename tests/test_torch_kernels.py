@@ -97,6 +97,40 @@ def test_k4_backward_arithmetic_matches_float64(scale):
             assert k_err <= max(p_err, 1e-5), (name, alpha, k_err, p_err)
 
 
+def _k4_segment(gen, m, c, alpha=None):
+    """x ~ N(0, 0.2^2) (m, c); alpha spread over (0.001, 1.999), or every
+    channel at `alpha`; scale, w (c,)."""
+    a = 0.001 + 1.998 * torch.rand(c, generator=gen) if alpha is None \
+        else torch.full((c,), alpha)
+    return (torch.randn(m, c, generator=gen) * 0.2, a,
+            0.01 + torch.rand(c, generator=gen), torch.rand(c, generator=gen))
+
+
+def test_k4_group_on_the_cpu_is_the_plain_version_per_segment():
+    """rho_rows_group on CPU tensors: each segment's rows and its x, alpha
+    and scale gradients are rho_rows_plain's, bit for bit; nothing
+    launches; more than MAX_SEGMENTS segments raise."""
+    reset_launches()
+    gen = torch.Generator().manual_seed(1)
+    segs = [_k4_segment(gen, m, c) for m, c in ((40, 64), (10, 128), (9, 3))]
+    gs = [torch.randn(seg[0].shape[0], generator=gen) for seg in segs]
+    ins_g = [[t.clone().requires_grad_() for t in seg[:3]] for seg in segs]
+    ins_p = [[t.clone().requires_grad_() for t in seg[:3]] for seg in segs]
+    rows_g = rr.rho_rows_group(*zip(*[(*i, seg[3])
+                                      for i, seg in zip(ins_g, segs)]))
+    rows_p = [rr.rho_rows_plain(*i, seg[3]) for i, seg in zip(ins_p, segs)]
+    torch.autograd.backward(rows_g, gs)
+    torch.autograd.backward(rows_p, gs)
+    for got, want in zip(rows_g, rows_p):
+        assert torch.equal(got, want)
+    for ig, ip in zip(ins_g, ins_p):
+        for a, b in zip(ig, ip):
+            assert torch.equal(a.grad, b.grad)
+    assert not any(launch_counts().values())
+    with pytest.raises(ValueError):
+        rr.rho_rows_group(*[[t] * (rr.MAX_SEGMENTS + 1) for t in segs[0]])
+
+
 def test_embed_dims_match_the_config():
     from npp_tpu_torch.config import (CompletionConfig, nerf_embed_dim,
                                       periodic_embed_dim)
@@ -151,7 +185,8 @@ def test_k1_bf16_matches_plain_on_the_card():
 
 def _assert_no_worse_than_plain(fn, plain, inputs, consts, g):
     """Run the kernel's wrapper, its plain version in f32 and the plain
-    version in float64 on the same inputs, forward and backward. Sums run
+    version in float64 on the same inputs, forward and backward (fn may
+    return a list of outputs, g then a list of their gradients). Sums run
     in another order in the kernel, and some terms cancel in f32 in both,
     so both are held to the float64 result: the kernel's error, relative
     to each output's largest magnitude, at most twice the f32 plain
@@ -161,8 +196,9 @@ def _assert_no_worse_than_plain(fn, plain, inputs, consts, g):
                   (plain, torch.float64)):
         ins = [t.to(dt, copy=True).requires_grad_() for t in inputs]
         y = f(*ins, *[c.to(dt) for c in consts])
-        y.backward(g.to(dt))
-        outs.append([y.detach()] + [t.grad for t in ins])
+        ys, gs = (y, g) if isinstance(y, list) else ([y], [g])
+        torch.autograd.backward(ys, [t.to(dt) for t in gs])
+        outs.append([t.detach() for t in ys] + [t.grad for t in ins])
     for i, (got, p32, ref) in enumerate(zip(*outs)):   # output, grads
         scale = float(ref.abs().max())
         k_err = float((got.double() - ref).abs().max()) / scale
@@ -198,23 +234,36 @@ def test_k4_forward_and_backward_match_plain_on_the_card(m, c):
 
 
 # the main path's K4 shapes: the pixel loss, then each LPIPS layer at six
-# 160x160 patches
+# 160x160 patches; the five LPIPS layers also as one grouped launch
 K4_SHAPES = [(8192, 3), (153600, 64), (38400, 128), (9600, 256),
              (2400, 512), (600, 512)]
+K4_CASES = [[shape] for shape in K4_SHAPES] + [K4_SHAPES[1:]]
+
+
+def _group(n, fn):
+    """fn over n segments, taking (x..., alpha..., scale..., w...)."""
+    return lambda *t: fn(t[:n], t[n:2 * n], t[2 * n:3 * n], t[3 * n:])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('m,c', K4_SHAPES)
+@pytest.mark.parametrize('shapes', K4_CASES,
+                         ids=lambda s: '+'.join(f'{m}x{c}' for m, c in s))
 @pytest.mark.parametrize('alpha', [0.001, 1.0, 1.999])
-def test_k4_at_main_path_shapes_on_the_card(m, c, alpha):
+def test_k4_at_main_path_shapes_on_the_card(shapes, alpha):
     """Every channel at alpha exactly 0.001, 1.0 or 1.999: the ends of the
-    adaptive range and the switch between the backward's two forms."""
+    adaptive range and the switch between the backward's two forms. Each
+    shape alone, and the five LPIPS layers in one forward launch (each
+    segment's rows and gradients held to the plain version)."""
     dev = _card()
-    gen = torch.Generator().manual_seed(m + c)
-    x = (torch.randn(m, c, generator=gen) * 0.2).to(dev)
-    a = torch.full((c,), alpha, device=dev)
-    scale = (0.01 + torch.rand(c, generator=gen)).to(dev)
-    w = torch.rand(c, generator=gen).to(dev)
-    g = torch.randn(m, generator=gen).to(dev)
-    _assert_no_worse_than_plain(rr.rho_rows, rr.rho_rows_plain,
-                                (x, a, scale), (w,), g)
+    gen = torch.Generator().manual_seed(sum(m + c for m, c in shapes))
+    segs = [[t.to(dev) for t in _k4_segment(gen, m, c, alpha)]
+            for m, c in shapes]
+    g = [torch.randn(m, generator=gen).to(dev) for m, _ in shapes]
+    n = len(shapes)
+    key = 'robust_rho_fwd' if n == 1 else 'robust_rho_fwd_group'
+    before = launch_counts().get(key, 0)
+    _assert_no_worse_than_plain(_group(n, rr.rho_rows_group),
+                                _group(n, rr.rho_rows_group_plain),
+                                [seg[i] for i in range(3) for seg in segs],
+                                [seg[3] for seg in segs], g)
+    assert launch_counts()[key] == before + 1

@@ -107,6 +107,32 @@ def test_k4_plain_rows_match_jax_nll(c, weighted):
         np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
+def test_grouped_nll_rows_equal_per_layer():
+    """weighted_nll_rows_group (the LPIPS-robust path: one K4 forward
+    launch on the card) equals weighted_nll_rows layer by layer on the
+    CPU, bit for bit, in values and in the x and latent gradients."""
+    rng = np.random.RandomState(5)
+    shapes = ((50, 64), (12, 128), (3, 512))
+    xs = [rng.randn(m, c).astype(np.float32) * 0.3 for m, c in shapes]
+    ws = [rng.rand(c).astype(np.float32) for _, c in shapes]
+    gs = [_t(rng.randn(m)) for m, _ in shapes]
+    jlats = [_latents(rng, c) for _, c in shapes]
+    runs = []
+    for grouped in (True, False):
+        ps = [_port_latents(jl, c) for jl, (_, c) in zip(jlats, shapes)]
+        xt = [_t(x, grad=True) for x in xs]
+        if grouped:
+            rows = TR.weighted_nll_rows_group(xt, ps, [_t(w) for w in ws])
+        else:
+            rows = [TR.weighted_nll_rows(x, p, _t(w))
+                    for x, p, w in zip(xt, ps, ws)]
+        torch.autograd.backward(rows, gs)
+        runs.append([r.detach() for r in rows] + [x.grad for x in xt] +
+                    [q.grad for p in ps for q in p.parameters()])
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize('loss_type', ['robust_loss_adaptive', 'robust_loss',
                                        'l2'])
 def test_img2mse_matches_jax(loss_type):
