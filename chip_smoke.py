@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero:
     started together, printing `-Xptxas -v`;
  3. kernels, with TF32 off: each kernel's wrapper against its plain
     PyTorch version on the card at the main path's shapes (K1 in f32 and
-    bf16; K2 forward and backward; K4's forward at the pixel loss's and
+    bf16; K2 forward and backward, and batched at the search's 9 x 2048 x
+    256 and 9 x 2048 x 128; K4 at the search's 2048 x 27 both ways with
+    every alpha; K4's forward at the pixel loss's and
     the evaluation's shapes and as one grouped launch over the five LPIPS
     layers, with alpha spread and at exactly 0.001, 1.0 and 1.999, and
     within 1e-6 of float64; K4's backward at each shape), timed by
@@ -27,8 +29,19 @@ Phases, in order; any failure exits non-zero:
     just before and read just after;
  6. bf16-table path: the same fit with embed_table='bfloat16', 11
     iterations (one block, one eval), counted the same way;
- 7. one JSON line of kernels, the nvidia-smi line, and the final
-    {"ok": true, "device": {...}} line.
+ 7. search path: `run_search` at the default SearchConfig on the same
+    image without its lattices (detection with its FFT grid on the card,
+    the 300-step lockstep fit of 9 candidates through K2 batched and one
+    K4 launch each way per step, the LPIPS + CX eval), counted the same
+    way; before it, in phase 3, detection with the grid on the card
+    against the CPU (equal up to proven ties) and one lockstep step on the
+    card against the CPU in full f32;
+ 8. search-chained path: the completion fit of phase 5 for 11 iterations
+    on the search's top-3 lattices (the patch size they give), counted the
+    same way;
+ 9. one JSON line of kernels (with the search path's K2 and K4 shapes),
+    the search's phase walls and the chained fit's metrics, the
+    nvidia-smi line, and the final {"ok": true, "device": {...}} line.
 """
 import concurrent.futures
 import json
@@ -232,60 +245,82 @@ def check_k1(gen):
     return out
 
 
-def check_k2(gen):
-    """K2 forward and backward at (59392, 512) and (59392, 256)."""
+def _k2_check(gen, shape):
+    """K2 forward and backward at `shape` ((M, N), or (B, M, N) with a bias
+    per batch) against the plain version in f32 and float64."""
     import torch
     from npp_tpu_torch.kernels import snake
     dev = torch.device('cuda')
-    m = 8192 + 2 * 160 * 160
-    errs = {}
-    for n in (512, 256):
-        h = torch.randn(m, n, generator=gen).to(dev)
-        b = (torch.rand(n, generator=gen) - 0.5).to(dev)
-        g = torch.randn(m, n, generator=gen).to(dev)
-        hk, bk = h.clone().requires_grad_(), b.clone().requires_grad_()
-        y = snake.bias_snake(hk, bk)
-        y.backward(g)
-        hp, bp = h.clone().requires_grad_(), b.clone().requires_grad_()
-        yp = snake.bias_snake_plain(hp, bp)
-        yp.backward(g)
-        hd, bd = h.double().requires_grad_(), b.double().requires_grad_()
-        yd = snake.bias_snake_plain(hd, bd)
-        yd.backward(g.double())
-        torch.cuda.synchronize()
-        for key, pairs in (('fwd', [(y, yp, yd)]),
-                           ('bwd', [(hk.grad, hp.grad, hd.grad),
-                                    (bk.grad, bp.grad, bd.grad)])):
-            e = judge(pairs)
-            errs[key] = merge(errs[key], e) if key in errs else e
-        if n == 512:
-            fwd_ms = time_ms(lambda: snake.snake_fwd_launch(h, b))
-            fwd_eager = eager_ms(lambda: snake.snake_fwd_launch(h, b))
-            fwd_plain = time_ms(lambda: snake.bias_snake_plain(h, b))
-            bwd_ms = time_ms(lambda: snake.snake_bwd_launch(g, h, b))
-            bwd_eager = eager_ms(lambda: snake.snake_bwd_launch(g, h, b))
+    lead = shape[:-2]
+    h = torch.randn(*shape, generator=gen).to(dev)
+    b = (torch.rand(*lead, shape[-1], generator=gen) - 0.5).to(dev)
+    g = torch.randn(*shape, generator=gen).to(dev)
+    hk, bk = h.clone().requires_grad_(), b.clone().requires_grad_()
+    snake.bias_snake(hk, bk).backward(g)
+    hp, bp = h.clone().requires_grad_(), b.clone().requires_grad_()
+    yp = snake.bias_snake_plain(hp, bp)
+    yp.backward(g)
+    hd, bd = h.double().requires_grad_(), b.double().requires_grad_()
+    yd = snake.bias_snake_plain(hd, bd)
+    yd.backward(g.double())
+    y = snake.bias_snake(h, b)
+    torch.cuda.synchronize()
+    return (h, b, g), {'fwd': judge([(y, yp, yd)]),
+                       'bwd': judge([(hk.grad, hp.grad, hd.grad),
+                                     (bk.grad, bp.grad, bd.grad)])}
 
-            def plain_bwd():
-                z = h + b
-                return g * (1.0 + torch.sin(2.0 * z))
-            bwd_plain = time_ms(plain_bwd)
-    numel = m * 512
+
+def k2_entries(gen, shape, names, also_judge=()):
+    """K2's forward and backward entries at `shape`, named `names`, judged
+    there and at the shapes of `also_judge`."""
+    import torch
+    from npp_tpu_torch.kernels import snake
+    (h, b, g), errs = _k2_check(gen, shape)
+    for other in also_judge:
+        more = _k2_check(gen, other)[1]
+        errs = {k: merge(errs[k], more[k]) for k in errs}
+    bb = b[:, None, :] if h.dim() == 3 else b
+
+    def plain_bwd():
+        return g * (1.0 + torch.sin(2.0 * (h + bb)))
+    numel = h.numel()
     out = []
     # forward: h read, y written; backward: g and h read, dh written
-    for key, ms, eager, plain_ms, n_bytes, ops in (
-            ('fwd', fwd_ms, fwd_eager, fwd_plain, 2 * numel * 4, 4 * numel),
-            ('bwd', bwd_ms, bwd_eager, bwd_plain, 3 * numel * 4,
-             5 * numel)):
+    for key, name, kernel, plain, n_bytes, ops in (
+            ('fwd', names[0], lambda: snake.snake_fwd_launch(h, b),
+             lambda: snake.bias_snake_plain(h, b), 2 * numel * 4, 4 * numel),
+            ('bwd', names[1], lambda: snake.snake_bwd_launch(g, h, b),
+             plain_bwd, 3 * numel * 4, 5 * numel)):
         b_ms, b_by = bound_ms(n_bytes, ops)
         out.append(dict(
-            name=f'bias_snake_{key}', route='triton',
+            name=name, route='triton',
             source='npp_tpu_torch/kernels/snake.py',
             replaces='npp_tpu/nn/mlp.py:69 (act(TorchLinear), XLA-fused '
                      'epilogue; no pl.pallas_call in the repo)',
-            shape=[m, 512], **errs[key], ms=ms, eager_ms=eager,
-            plain_ms=plain_ms,
+            shape=list(shape), **errs[key], ms=time_ms(kernel),
+            eager_ms=eager_ms(kernel), plain_ms=time_ms(plain),
             bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
             library_ms=None))
+    return out
+
+
+# the search's lockstep fit: 9 candidates x N_rand 2048 rows, its four
+# periodic layers at width 256 and pos_0 at 128; its pixel loss as one
+# (2048, 9 x 3) K4 launch each way
+SEARCH_K2 = [(9, 2048, 256), (9, 2048, 128)]
+SEARCH_K4 = (2048, 27)
+
+
+def check_k2(gen):
+    """K2 forward and backward at the main path's (59392, 512) (also
+    judged at (59392, 256)), and batched at the search's shapes."""
+    m = 8192 + 2 * 160 * 160
+    out = k2_entries(gen, (m, 512), ('bias_snake_fwd', 'bias_snake_bwd'),
+                     also_judge=[(m, 256)])
+    for shape in SEARCH_K2:
+        key = 'x'.join(map(str, shape))
+        out += k2_entries(gen, shape, (f'bias_snake_fwd[{key}]',
+                                       f'bias_snake_bwd[{key}]'))
     return out
 
 
@@ -396,7 +431,29 @@ def check_k4(gen):
         segments=singles))
 
     for m, c in [K4_PIXEL] + K4_LPIPS:
-        x, alpha, scale, w = k4_inputs(gen, m, c, 'spread')
+        out.append(k4_bwd_entry(gen, m, c, ('spread',)))
+
+    # the search's lockstep fit, every alpha both ways
+    m, c = SEARCH_K4
+    err = judge_k4_fwd(gen, [(m, c)])
+    x, alpha, scale, w = k4_inputs(gen, m, c, 'spread')
+    out.append(k4_entry(
+        f'robust_rho_fwd[{m}x{c}]', FWD_SRC, [m, c], err,
+        lambda: rr.rho_fwd_launch(x, alpha, scale, w),
+        lambda: rr.rho_rows_plain(x, alpha, scale, w),
+        *fwd_bytes_ops(m, c)))
+    out.append(k4_bwd_entry(gen, m, c, K4_ALPHAS))
+    return out
+
+
+def k4_bwd_entry(gen, m, c, alphas):
+    """K4's backward (dx, dalpha, dscale) at (m, c), judged at each alpha
+    of `alphas`, timed at the last."""
+    import torch
+    from npp_tpu_torch.kernels import robust_rho as rr
+    err = None
+    for a in alphas:
+        x, alpha, scale, w = k4_inputs(gen, m, c, a)
         g = torch.randn(m, generator=gen).to(x.device)
         ins_k = [t.clone().requires_grad_() for t in (x, alpha, scale)]
         ins_p = [t.clone().requires_grad_() for t in (x, alpha, scale)]
@@ -405,21 +462,19 @@ def check_k4(gen):
         ins_d = [t.double().requires_grad_() for t in (x, alpha, scale)]
         rr.rho_rows_plain(*ins_d, w.double()).backward(g.double())
         torch.cuda.synchronize()
+        e = judge([(p.grad, q.grad, d.grad) for p, q, d in
+                   zip(ins_k, ins_p, ins_d)])
+        err = e if err is None else merge(err, e)
 
-        def plain_bwd():
-            xs, a_, s_ = (t.detach().requires_grad_()
-                          for t in (x, alpha, scale))
-            return torch.autograd.grad(rr.rho_rows_plain(xs, a_, s_, w),
-                                       (xs, a_, s_), g)
-        # x and g read, dx, dalpha and dscale written (alpha, scale and w
-        # are C values each)
-        out.append(k4_entry(
-            f'robust_rho_bwd[{m}x{c}]', BWD_SRC, [m, c],
-            judge([(a.grad, b.grad, d.grad) for a, b, d in
-                   zip(ins_k, ins_p, ins_d)]),
-            lambda: rr.rho_bwd_launch(g, x, alpha, scale, w), plain_bwd,
-            (2 * m * c + m + 5 * c) * 4, 60 * m * c))
-    return out
+    def plain_bwd():
+        xs, a_, s_ = (t.detach().requires_grad_() for t in (x, alpha, scale))
+        return torch.autograd.grad(rr.rho_rows_plain(xs, a_, s_, w),
+                                   (xs, a_, s_), g)
+    # x and g read, dx, dalpha and dscale written (alpha, scale and w are
+    # C values each)
+    return k4_entry(f'robust_rho_bwd[{m}x{c}]', BWD_SRC, [m, c], err,
+                    lambda: rr.rho_bwd_launch(g, x, alpha, scale, w),
+                    plain_bwd, (2 * m * c + m + 5 * c) * 4, 60 * m * c)
 
 
 def check_fit_step():
@@ -561,12 +616,13 @@ def check_tf32_gradients():
     return res
 
 
-def drive(label, must_launch, **overrides):
-    """run_completion on the 384x512 synthetic example at the default
-    CompletionConfig widths with `overrides`, every launch count set to 0
-    just before and read just after. Fails on non-finite losses or metrics,
-    a wrong composite, missing evals, or a kernel of `must_launch` (a name
-    of launch_counts(), with or without its shape) that never launched."""
+def drive(label, must_launch, data=None, **overrides):
+    """run_completion on the 384x512 synthetic example (or `data`, the same
+    image with other lattices) at the default CompletionConfig widths with
+    `overrides`, every launch count set to 0 just before and read just
+    after. Fails on non-finite losses or metrics, a wrong composite,
+    missing evals, or a kernel of `must_launch` (a name of launch_counts(),
+    with or without its shape) that never launched."""
     import numpy as np
     import torch
     from npp_tpu_torch.config import CompletionConfig, replace
@@ -574,7 +630,7 @@ def drive(label, must_launch, **overrides):
     from npp_tpu_torch.models.completion import run_completion
     from npp_tpu_torch.utils.synthetic import H, W, synthetic_data
     cfg = replace(CompletionConfig(), i_testset=10, i_print=10, **overrides)
-    data = synthetic_data(0)
+    data = synthetic_data(0) if data is None else data
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.time()
@@ -610,7 +666,207 @@ def drive(label, must_launch, **overrides):
     missing = [k for k in must_launch if launches.get(k, 0) <= 0]
     if missing:
         fail(f'{label}: kernels never launched: {missing}')
-    return launches, result.history, peak
+    return launches, result.history, peak, final
+
+
+def same_up_to_ties(got, want, grids, w):
+    """Two detections (angles, periods, shifts) agree: the same groups, and
+    in each the same shifts (angles and periods then within 1e-6), or
+    shifts whose losses tie within 1e-5 of the grid's largest magnitude
+    on every grid of `grids` (the FFTs' rounding decides such ties).
+    Returns the number of tied groups, or None if they disagree."""
+    import numpy as np
+    (a_t, p_t, s_t), (a_w, p_w, s_w) = got, want
+    if len(s_t) != len(s_w):
+        return None
+    ties = 0
+    for i in range(len(s_w)):
+        if np.array_equal(np.asarray(s_t[i]), np.asarray(s_w[i])):
+            if not (np.allclose(a_t[i], a_w[i], rtol=0, atol=1e-6) and
+                    np.allclose(p_t[i], p_w[i], rtol=0, atol=1e-6)):
+                return None
+            continue
+        ties += 1
+        for st, sw in zip(s_t[i], s_w[i]):
+            (xt, yt), (xw, yw) = (np.asarray(st) / 4).astype(int), \
+                (np.asarray(sw) / 4).astype(int)
+            for g in grids:
+                if abs(g[yt, xt + w] - g[yw, xw + w]) > \
+                        1e-5 * np.abs(g).max():
+                    return None
+    return ties
+
+
+def check_search_detection():
+    """Detection at the default SearchConfig on the flagship image with its
+    loss grid on the card (cuFFT) and on the CPU: the same candidates up
+    to proven ties. Returns the CPU detection and the pseudo-split."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import SearchConfig
+    from npp_tpu_torch.proposal import features, search_engine
+    from npp_tpu_torch.proposal.pseudo_mask import build_pseudo_split
+    from npp_tpu_torch.utils.synthetic import synthetic_search_data
+    cfg = SearchConfig()
+    d = synthetic_search_data(0)
+    img = np.uint8(d['masked_img'] * 255)
+    mask = np.uint8(d['valid_mask'] * d['unknown_mask'])[..., 0]
+    dets = {name: search_engine.search_periodicity_by_feat(
+        img, mask, repeat_range=cfg.search_range, device=torch.device(name))
+        for name in ('cuda', 'cpu')}
+    act, m = features.im2act(img, mask)
+    act = act * features.act2edge(act[:-1], m)[[0]]
+    grids = [search_engine.displacement_loss_grid(
+        torch.tensor(act[:-1], dtype=torch.float32, device=name),
+        torch.tensor(m, dtype=torch.float32, device=name)).cpu().numpy()
+        for name in ('cuda', 'cpu')]
+    grid_err = float(np.abs(grids[0] - grids[1]).max() /
+                     np.abs(grids[1]).max())
+    ties = same_up_to_ties(dets['cuda'], dets['cpu'], grids, m.shape[1])
+    log(f'search detection: {len(dets["cpu"][0])} candidates on the CPU, '
+        f'{len(dets["cuda"][0])} with the grid on the card; grid rel diff '
+        f'{grid_err:.2e}; tied groups {ties}')
+    if ties is None:
+        fail('search detection on the card disagrees with the CPU beyond '
+             'ties')
+    _, i_train, _ = build_pseudo_split(d['unknown_mask'], d['valid_mask'])
+    return dets['cpu'], i_train, d['masked_img']
+
+
+def check_search_step(det, i_train, img):
+    """One lockstep ranking step of the default SearchConfig (9 candidates,
+    depth 4, width 256, N_rand 2048) with the same parameters and batch on
+    the card (K2 batched, one K4 launch each way) and on the CPU (plain
+    versions), matmul_precision='float32': loss and every gradient agree."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import SearchConfig, replace
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.nn.embedder import gaussian_freq_bands
+    from npp_tpu_torch.proposal import ranking
+    cfg = replace(SearchConfig(), matmul_precision='float32')
+    angles, periods, _ = det
+    gen = torch.Generator().manual_seed(7)
+    bands = gaussian_freq_bands(gen, cfg.multires)
+    pix = torch.as_tensor(i_train)[torch.randint(
+        0, len(i_train), (cfg.N_rand,), generator=gen)]
+    res = {}
+    for name in ('cpu', 'cuda'):
+        dev = torch.device(name)
+        params = ranking.init_rank_params(cfg, len(angles), dev)
+        with torch.no_grad():    # latents away from 0: alpha != 1
+            params.adaptive_pix.latent_alpha.copy_(torch.linspace(
+                -2, 2, params.adaptive_pix.latent_alpha.numel()).reshape(
+                params.adaptive_pix.latent_alpha.shape))
+        lat = ranking.Lattices(cfg, angles, periods, bands, img.shape[:2],
+                               dev)
+        im = torch.as_tensor(img, dtype=torch.float32, device=dev)
+        p = pix.to(dev)
+        with matmul_precision(cfg.matmul_precision):
+            loss = ranking.rank_loss(params, lat, p.float(),
+                                     im[p[:, 0], p[:, 1]])
+            loss.backward()
+        res[name] = (loss.detach().cpu(),
+                     {k: q.grad.cpu() for k, q in params.named_parameters()})
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    l_err = rel(res['cuda'][0], res['cpu'][0])
+    g_err = max(rel(res['cuda'][1][k], v) for k, v in res['cpu'][1].items())
+    log(f'search step card vs CPU: loss {float(res["cuda"][0]):.6f} vs '
+        f'{float(res["cpu"][0]):.6f} (rel {l_err:.2e}), worst gradient rel '
+        f'err {g_err:.2e} over {len(res["cpu"][1])} tensors')
+    if not (l_err < 1e-4 and g_err < 1e-2 and np.isfinite(g_err)):
+        fail('search step on the card disagrees with the CPU')
+
+
+def drive_search():
+    """run_search at the default SearchConfig on the flagship image (its
+    lattices not given), on the card, save=False, every launch count set
+    to 0 just before and read just after. Fails unless 9 candidates are
+    ranked, the fit's losses are finite and fall, every score is finite,
+    and the fit ran K2 batched and one K4 launch each way per step."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import SearchConfig
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.proposal.search import run_search
+    from npp_tpu_torch.utils.synthetic import synthetic_search_data
+    cfg = SearchConfig()
+    data = synthetic_search_data(0)
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    odgt = run_search(cfg, device='cuda', data=data, save=False, stats=stats)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = np.asarray(stats['fit_losses'])
+    cands = odgt['rank_candidates']
+    log(f"search: detect {stats['detect_s']:.2f} s, rank "
+        f"{stats['rank_s']:.2f} s (fit {stats['fit_s']:.2f} s, "
+        f"{stats['fit_ms_per_step']:.2f} ms/step; eval "
+        f"{stats['eval_s']:.2f} s: render {stats['eval_render_s']:.3f}, "
+        f"LPIPS {stats['eval_lpips_s']:.3f}, CX {stats['eval_cx_s']:.3f} s "
+        f"at {stats['cx_positions']} positions in groups of "
+        f"{stats['cx_group']}, crop {stats['crop']}), artefacts "
+        f"{stats['artefacts_s']:.3f} s; peak memory allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log(f'search: fit loss {losses[0]:.5f} -> {losses[-1]:.5f}; distances '
+        f"(detection order) {cands['scores']['reference']}")
+    for i in range(3):
+        log(f"search: top-{i + 1}: shifts {odgt['selected_shifts'][i]}, "
+            f"angles {odgt['selected_angles'][i]}, periods "
+            f"{odgt['selected_periods'][i]}, distance "
+            f"{odgt['distances'][i]:.5f}")
+    log(f'search: launches {dict(launches)}')
+    scores = [v for s in cands['scores'].values() for v in s] + \
+        [v for c in cands['components'].values() for v in c]
+    if len(cands['angles']) != 9:
+        fail(f"search: {len(cands['angles'])} candidates, not 9")
+    if not (np.all(np.isfinite(losses)) and
+            losses[-10:].mean() < losses[:10].mean()):
+        fail(f'search: fit losses not finite or not falling: {losses}')
+    if not np.all(np.isfinite(scores)):
+        fail('search: non-finite scores')
+    n, m = cfg.N_iters, SEARCH_K4
+    want = {f'robust_rho_fwd[{m[0]}x{m[1]}]': n,
+            f'robust_rho_bwd[{m[0]}x{m[1]}]': n}
+    for (b, r, w), per_step in zip(SEARCH_K2, (cfg.netdepth, 1)):
+        for k in ('fwd', 'bwd'):
+            want[f'bias_snake_{k}[{b}x{r}x{w}]'] = per_step * n
+    wrong = {k: launches.get(k, 0) for k, v in want.items()
+             if launches.get(k, 0) != v}
+    if wrong:
+        fail(f'search: launch counts {wrong}, expected {want}')
+    return odgt, stats, launches, peak
+
+
+def search_names():
+    """The kernel entries of the search path (named like its launch
+    counts)."""
+    names = [f'bias_snake_{k}[{"x".join(map(str, sh))}]'
+             for sh in SEARCH_K2 for k in ('fwd', 'bwd')]
+    m, c = SEARCH_K4
+    return names + [f'robust_rho_fwd[{m}x{c}]', f'robust_rho_bwd[{m}x{c}]']
+
+
+def chained_data(odgt):
+    """The flagship example with the search's top-3 lattices (read as the
+    completion loader reads a record) in place of its own, and the patch
+    size that follows from them."""
+    from npp_tpu_torch.config import CompletionConfig
+    from npp_tpu_torch.models.loaders import _topk_periodicity
+    from npp_tpu_torch.utils.io import patch_size_from_periods
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    cfg = CompletionConfig()
+    shifts, angles, periods = _topk_periodicity(odgt, cfg.p_topk,
+                                                cfg.aux_gate_ratio)
+    data = synthetic_data(0)
+    data.selected_shifts, data.selected_angles = shifts, angles
+    data.selected_periods = periods
+    data.patch_size = patch_size_from_periods(periods)
+    return data
 
 
 def main():
@@ -620,7 +876,7 @@ def main():
     phase_build()
     gen = torch.Generator().manual_seed(0)
     with matmul_precision('float32'):
-        log('kernel checks and the fit step: TF32 off '
+        log('kernel checks and the fit steps: TF32 off '
             '(torch.backends.cuda.matmul.allow_tf32 = False, '
             'torch.backends.cudnn.allow_tf32 = False)')
         kernels = check_k1(gen) + check_k2(gen) + check_k4(gen)
@@ -642,26 +898,59 @@ def main():
         if bad:
             fail(f'kernels disagree with their plain versions: {bad}')
         check_fit_step()
+        det, i_train, img = check_search_detection()
+        check_search_step(det, i_train, img)
     cosines = check_tf32_gradients()
     bf16_name = 'periodic_embed_bf16'
+    on_search = set(search_names())
     log("main path and bf16-table path: matmul_precision='bfloat16' (the "
         "default), TF32 on in the steps and the render")
-    main_launches, history, peak = drive(
-        'main path', [k['name'] for k in kernels if k['name'] != bf16_name],
+    main_launches, history, peak, _ = drive(
+        'main path', [k['name'] for k in kernels
+                      if k['name'] != bf16_name and k['name'] not in on_search],
         N_iters=21)
-    bf16_launches, bf16_history, _ = drive(
+    bf16_launches, bf16_history, _, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
                             'robust_rho_fwd', 'robust_rho_bwd'],
         N_iters=11, embed_table='bfloat16')
+    log("search path: the default SearchConfig (matmul_precision="
+        "'bfloat16': TF32 in the fit; the eval in full f32)")
+    odgt, stats, search_launches, search_peak = drive_search()
+    chained = chained_data(odgt)
+    log(f'search-chained path: the search\'s top-3 lattices '
+        f'{chained.selected_angles} / {chained.selected_periods}, patch size '
+        f'{chained.patch_size}')
+    _, chained_history, _, chained_final = drive(
+        'search-chained path', ['periodic_embed', 'bias_snake_fwd',
+                                'bias_snake_bwd', 'robust_rho_fwd',
+                                'robust_rho_bwd'],
+        data=chained, N_iters=11)
     for k in kernels:
-        k['launches'] = (bf16_launches if k['name'] == bf16_name
-                         else main_launches).get(k['name'], 0)
+        k['launches'] = (bf16_launches if k['name'] == bf16_name else
+                         search_launches if k['name'] in on_search else
+                         main_launches).get(k['name'], 0)
+    search = {k: v for k, v in stats.items() if k != 'fit_losses'}
+    search.update(peak_bytes=search_peak,
+                  fit_loss_first_last=[float(stats['fit_losses'][0]),
+                                       float(stats['fit_losses'][-1])],
+                  distances=odgt['rank_candidates']['scores']['reference'],
+                  top3=[odgt['selected_shifts'][:3],
+                        odgt['selected_angles'][:3],
+                        odgt['selected_periods'][:3]])
     print(json.dumps({'kernels': kernels,
                       'fit': {'ms_per_step': [h['ms_per_step']
                                               for h in history],
                               'bf16_table_ms_per_step': [
                                   h['ms_per_step'] for h in bf16_history],
                               'peak_bytes': peak},
+                      'search': search,
+                      'search_chained': {
+                          'patch_size': chained.patch_size,
+                          'ms_per_step': [h['ms_per_step']
+                                          for h in chained_history],
+                          'train_psnr': chained_final['train_psnr'],
+                          'val_psnr': chained_final['val_psnr'],
+                          'val_lpips': chained_final['val_lpips']},
                       'tf32_gradient_cosine': cosines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -124,8 +124,8 @@ class CompletionConfig(FitConfig):
 
 @dataclass(frozen=True)
 class SearchConfig(BaseConfig):
-    """Periodicity proposal + ranking (reference: options/arg_config.py:105-146).
-    Parsed only; the search is not ported yet."""
+    """Periodicity proposal + ranking (reference: options/arg_config.py:105-146),
+    run by proposal/search.py::run_search."""
 
     datadir: str = ""
     outdir: str = "data/completion/detected"
@@ -139,8 +139,13 @@ class SearchConfig(BaseConfig):
     contextual_weight: float = 1.0
     perceptual_weight: float = 30.0
     N_iters: int = 300
-    rank_pad_candidates: int = 9
-    crop_bucket: int = 64
+    rank_pad_candidates: int = 9        # ignored by the port: npp_tpu pads
+                                        # the candidate axis to reuse its
+                                        # executables; distances do not
+                                        # depend on it
+    crop_bucket: int = 64               # the eval crop is rounded up to a
+                                        # multiple of this (0 = off); it
+                                        # changes the scores
     rank_proxy: str = "reference"
     rank_pix_weight: float = 1.0
     cx_mask_pad: bool = False

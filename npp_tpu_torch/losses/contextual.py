@@ -2,13 +2,16 @@
 
 Port of `npp_tpu/losses/contextual.py` (reference:
 externel_lib/contextual_loss/functional.py:9-63,127-186 and
-modules/contextual.py:9-68), cosine path. Plain PyTorch in this slice; the
-similarity chain is the K3 kernel of a later slice (ROADMAP.md).
+modules/contextual.py:9-68), cosine path, with npp_tpu's spatial mask
+(the search's cx_mask_pad) and a per-sample form (one value per sample,
+the search's eval of each candidate). Plain PyTorch; the similarity chain
+is the K3 kernel of a later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..nn.features import (VGG19_BLOCKS, VGG19_CX_TAP, VGGFeatures,
@@ -17,17 +20,20 @@ from ..nn.pretrained import load_tower_params
 
 
 def compute_cosine_distance(x: torch.Tensor, y: torch.Tensor,
-                            feat_valid: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            feat_valid: Optional[torch.Tensor] = None,
+                            per_sample: bool = False) -> torch.Tensor:
     """x, y: (N, H, W, C) -> dist (N, HW_x, HW_y)
     (reference: functional.py:127-163). feat_valid: optional (N, H, W)
-    mask; the mean-shift statistic then uses valid positions only."""
+    mask; the mean-shift statistic then uses valid positions only. The
+    statistic is over the batch and space, or over each sample's space
+    with per_sample (each sample then as if alone)."""
+    dims = (1, 2) if per_sample else (0, 1, 2)
     if feat_valid is not None:
         v = feat_valid[..., None].to(y.dtype)
-        y_mu = (torch.sum(y * v, dim=(0, 1, 2), keepdim=True)
-                / torch.clamp(torch.sum(v, dim=(0, 1, 2), keepdim=True), min=1.0))
+        y_mu = (torch.sum(y * v, dim=dims, keepdim=True)
+                / torch.clamp(torch.sum(v, dim=dims, keepdim=True), min=1.0))
     else:
-        y_mu = torch.mean(y, dim=(0, 1, 2), keepdim=True)
+        y_mu = torch.mean(y, dim=dims, keepdim=True)
     xc = x - y_mu
     yc = y - y_mu
     xn = xc / (torch.linalg.vector_norm(xc, dim=-1, keepdim=True) + 1e-12)
@@ -51,13 +57,18 @@ def compute_cx(dist_tilde: torch.Tensor, band_width: float) -> torch.Tensor:
 def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
                     weight: Optional[torch.Tensor] = None,
                     valid: Optional[torch.Tensor] = None,
-                    feat_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    feat_valid: Optional[torch.Tensor] = None,
+                    per_sample: bool = False) -> torch.Tensor:
     """CX loss on NHWC feature maps (reference: functional.py:9-63).
 
     valid: optional (N,) bool — invalid samples contribute 0 and the
     unweighted aggregation is a masked mean over the survivors.
-    feat_valid: optional (N, H, W) position mask applied to both x and y."""
-    dist_raw = compute_cosine_distance(x, y, feat_valid)
+    feat_valid: optional (N, H, W) position mask applied to both x and y.
+    per_sample: return (N,) values, each sample's loss as if it were called
+    alone (weight and valid are then not taken)."""
+    if per_sample and (weight is not None or valid is not None):
+        raise ValueError('per_sample takes no weight or valid')
+    dist_raw = compute_cosine_distance(x, y, feat_valid, per_sample)
     if feat_valid is not None:
         fv = feat_valid.reshape(feat_valid.shape[0], -1)  # (N, P)
         fvd = fv.to(dist_raw.dtype)
@@ -70,6 +81,8 @@ def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
         cx = torch.sum(cx * fvd, dim=1) / torch.clamp(fvd.sum(1), min=1.0)
     else:
         cx = torch.mean(torch.amax(cx, dim=1), dim=1)          # (N,)
+    if per_sample:
+        return -torch.log(cx + 1e-5)
     if weight is not None:
         term = -torch.log(cx * weight + 1e-5)
         if valid is not None:
@@ -102,6 +115,53 @@ class ContextualLoss:
 
     def __call__(self, x: torch.Tensor, y: torch.Tensor,
                  weight: Optional[torch.Tensor] = None,
-                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return contextual_loss(self.features(x), self.features(y),
-                               self.band_width, weight, valid=valid)
+                 valid: Optional[torch.Tensor] = None,
+                 spatial_mask: Optional[torch.Tensor] = None,
+                 per_sample: bool = False) -> torch.Tensor:
+        """spatial_mask: optional (N, H, W, 1) image-resolution mask of real
+        content; feature positions with (about) no overlap with it are left
+        out of the match (npp_tpu/losses/contextual.py:154-186: the
+        ranking's cx_mask_pad). per_sample: (N,) values, each as if its
+        sample were called alone."""
+        fx, fy = self.features(x), self.features(y)
+        feat_valid = None
+        if spatial_mask is not None:
+            n, fh, fw = fx.shape[:3]
+            frac = resize_linear_antialiased(
+                spatial_mask.to(torch.float32)[..., 0], (fh, fw))
+            feat_valid = torch.broadcast_to(
+                (frac > 1e-3).to(torch.float32), (n, fh, fw))
+        return contextual_loss(fx, fy, self.band_width, weight, valid=valid,
+                               feat_valid=feat_valid, per_sample=per_sample)
+
+
+def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of jax.image.resize(method='linear')
+    along one axis (jax/_src/image/scale.py::compute_weight_mat with
+    antialias): the triangle kernel widened by in/out when downsampling,
+    each column normalised, columns outside the input zeroed."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - \
+        f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = np.sum(w, axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= f32(n_in) - f32(0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_linear_antialiased(img: torch.Tensor,
+                              size: Tuple[int, int]) -> torch.Tensor:
+    """(N, H, W) -> (N, h, w) as jax.image.resize(..., method='linear')
+    resizes H and W: a separable triangle filter that antialiases when it
+    downsamples (torch's bilinear interpolation does not)."""
+    wy = torch.as_tensor(_triangle_weights(img.shape[1], size[0]),
+                         device=img.device)
+    wx = torch.as_tensor(_triangle_weights(img.shape[2], size[1]),
+                         device=img.device)
+    return torch.einsum('nhw,hy,wx->nyx', img, wy, wx)

@@ -11,19 +11,20 @@ the port's own copy under npp_tpu_torch/assets/.
 `weighted_nll_rows` (and `weighted_nll_rows_group`, several at once) is the
 adaptive losses' hot path: its per-element rho goes through K4
 (kernels/robust_rho.py) for CUDA tensors, and the per-channel constant
-log s + log Z(alpha) stays here with autograd.
+log s + log Z(alpha) stays here with autograd. `stacked_nll_mean_sum` is
+the search's pixel loss over all its candidates in one K4 launch.
 """
 from __future__ import annotations
 
 import functools
 import os
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.robust_rho import rho_otherwise, rho_rows_group
+from ..kernels.robust_rho import rho_otherwise, rho_rows, rho_rows_group
 
 _LOG_MAX = 33e37
 _EXP_MAX = 87.5
@@ -127,17 +128,20 @@ def nllfun(x, alpha, scale):
 
 class AdaptiveLossParams(nn.Module):
     """Trainable latents of AdaptiveLossFunction (reference:
-    adaptive.py:138-181), each (1, num_dims). Both initialise to zeros:
+    adaptive.py:138-181), each (1, num_dims), or (n, 1, num_dims) for n
+    stacked copies (the search's candidates). Both initialise to zeros:
     latent_alpha=0 maps to alpha 1.0 and latent_scale=0 to scale 1.0."""
 
-    def __init__(self, num_dims: int):
+    def __init__(self, num_dims: int, n_stack: Optional[int] = None):
         super().__init__()
-        self.latent_alpha = nn.Parameter(torch.zeros((1, num_dims)))
-        self.latent_scale = nn.Parameter(torch.zeros((1, num_dims)))
+        shape = (1, num_dims) if n_stack is None else (n_stack, 1, num_dims)
+        self.latent_alpha = nn.Parameter(torch.zeros(shape))
+        self.latent_scale = nn.Parameter(torch.zeros(shape))
 
 
-def adaptive_init(num_dims: int) -> AdaptiveLossParams:
-    return AdaptiveLossParams(num_dims)
+def adaptive_init(num_dims: int,
+                  n_stack: Optional[int] = None) -> AdaptiveLossParams:
+    return AdaptiveLossParams(num_dims, n_stack)
 
 
 def adaptive_alpha(p: AdaptiveLossParams, alpha_lo=0.001, alpha_hi=1.999):
@@ -168,3 +172,20 @@ def weighted_nll_rows(x: torch.Tensor, p: AdaptiveLossParams,
     channels with weights w). The rho term goes through K4; the
     per-channel constant is added once per row."""
     return weighted_nll_rows_group((x,), (p,), (w,), scale_lo)[0]
+
+
+def stacked_nll_mean_sum(diff: torch.Tensor, p: AdaptiveLossParams,
+                         scale_lo: float = 1e-5) -> torch.Tensor:
+    """Sum over n stacked copies of mean(nll(diff[i], alpha_i, s_i)):
+    diff (n, M, C), p with latents (n, 1, C). The n*C channels are laid
+    out side by side as one (M, n*C) matrix with alpha and s per column,
+    so the rho terms of every copy go through one K4 forward (and one
+    backward) launch. Its row sums mix the copies, which is harmless for
+    the gradient: each copy's parameters reach only its own terms."""
+    n, m, c = diff.shape
+    x = diff.permute(1, 0, 2).reshape(m, n * c)
+    alpha = adaptive_alpha(p).reshape(n * c)
+    scale = adaptive_scale(p, scale_lo=scale_lo).reshape(n * c)
+    rows = rho_rows(x, alpha, scale, torch.ones_like(alpha))
+    const = torch.sum(torch.log(scale) + log_base_partition_function(alpha))
+    return (torch.sum(rows) + m * const) / (m * c)

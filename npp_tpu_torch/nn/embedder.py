@@ -60,7 +60,11 @@ def periodic_warp(coords_yx: torch.Tensor, angles_deg: torch.Tensor,
     fn(2*pi * ((y cos(th) + x sin(th)) mod f) / f) with
     f = (period[idx] + o) * s, th = deg2rad(angle[idx] + a)
     (reference: embedder.py:117-133). The modulo is floored, as jnp.mod,
-    written p - f*floor(p/f) to match K1 op for op."""
+    written p - f*floor(p/f) to match K1 op for op.
+
+    angles_deg and periods are (2,), or (B, 2) for B proposals at once
+    (the search's candidates; coords_yx is then (M, 2) and the result
+    (B, M, D))."""
     h, w = res
     y = coords_yx[..., 0:1]
     x = coords_yx[..., 1:2]
@@ -70,8 +74,8 @@ def periodic_warp(coords_yx: torch.Tensor, angles_deg: torch.Tensor,
         for s in freq_scales:
             for o in freq_offsets:
                 for a in angle_offsets:
-                    f = (periods[idx] + o) * s
-                    th = torch.deg2rad(angles_deg[idx] + a)
+                    f = ((periods[..., idx] + o) * s)[..., None, None]
+                    th = torch.deg2rad(angles_deg[..., idx] + a)[..., None, None]
                     proj = y * torch.cos(th) + x * torch.sin(th)
                     m = proj - f * torch.floor(proj / f)
                     phase = (m / f) * (2.0 * np.pi)
@@ -79,14 +83,13 @@ def periodic_warp(coords_yx: torch.Tensor, angles_deg: torch.Tensor,
                     chans.append(torch.cos(phase))
         return torch.cat(chans, dim=-1)
 
-    parts = []
-    if include_input:
-        parts.append((x / w - 0.5) * 2.0)
-    parts.append(orient_channels(0))
-    if include_input:
-        parts.append((y / h - 0.5) * 2.0)
-    parts.append(orient_channels(1))
-    return torch.cat(parts, dim=-1)
+    o0, o1 = orient_channels(0), orient_channels(1)
+    if not include_input:
+        return torch.cat([o0, o1], dim=-1)
+    lead = o0.shape[:-1] + (1,)
+    return torch.cat([torch.broadcast_to((x / w - 0.5) * 2.0, lead), o0,
+                      torch.broadcast_to((y / h - 0.5) * 2.0, lead), o1],
+                     dim=-1)
 
 
 @dataclass

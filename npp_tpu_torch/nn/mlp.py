@@ -1,5 +1,5 @@
-"""NPP-Net fit models in PyTorch (reference: models/networks.py:8-173), ports
-of `npp_tpu/nn/mlp.py::NPPNet` and `NPPNetTop1`.
+"""NPP-Net models in PyTorch (reference: models/networks.py:8-263), ports
+of `npp_tpu/nn/mlp.py::NPPNet`, `NPPNetTop1` and `NPPNetLight`.
 
 Layers are `nn.Linear` with its default init, U(+-1/sqrt(fan_in)) for weight
 and bias, the same distribution as the JAX package's TorchLinear
@@ -9,10 +9,16 @@ utils/convert.py maps one onto the other.
 
 With the snake activation each activated layer is a bias-free matmul
 followed by K2 (kernels/snake.py: bias + snake, a Triton kernel on CUDA).
+
+`NPPNetLight` is the search's model, stacked: it holds the weights of
+every candidate, (n_cand, in, out) and (n_cand, out) in the flax layout,
+and runs them at once with `torch.bmm`; K2 takes the batch with a bias per
+candidate.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +102,103 @@ class NPPNetTop1(nn.Module):
         feature1 = self.feature1(h)
         h = _act_linear(self.pos_0, feature1, self.activation)
         return self.rgb(h)
+
+
+def light_channel_split(total_periodic: int, n_scales: int, n_offsets: int,
+                        n_angle_offsets: int
+                        ) -> Tuple[Sequence[int], Sequence[int]]:
+    """Index split of periodic channels into trunk vs. scale-aux groups
+    (reference: models/networks.py:184-190)."""
+    scale_dim = (n_scales - 1) * 4 * n_offsets * n_angle_offsets
+    base = 2 * n_offsets * n_angle_offsets
+    scale_inds = list(range(base, base + scale_dim // 2)) + \
+        list(range(total_periodic - scale_dim // 2, total_periodic))
+    period_inds = [i for i in range(total_periodic) if i not in scale_inds]
+    return period_inds, scale_inds
+
+
+class StackedLinear(nn.Module):
+    """n_cand dense layers applied at once: x (n_cand, M, in) ->
+    (n_cand, M, out), with `kernel` (n_cand, in, out) and `bias`
+    (n_cand, out) as flax keeps them. Every candidate starts from the same
+    draw, U(+-1/sqrt(in)) for kernel and bias (nn.Linear's default)."""
+
+    def __init__(self, n_cand: int, d_in: int, d_out: int,
+                 gen: torch.Generator):
+        super().__init__()
+        bound = 1.0 / math.sqrt(d_in)
+        k = (torch.rand((d_in, d_out), generator=gen) * 2 - 1) * bound
+        b = (torch.rand((d_out,), generator=gen) * 2 - 1) * bound
+        self.kernel = nn.Parameter(k.expand(n_cand, -1, -1).clone())
+        self.bias = nn.Parameter(b.expand(n_cand, -1).clone())
+
+    def forward(self, x: torch.Tensor,
+                activation: Optional[str] = None) -> torch.Tensor:
+        h = torch.bmm(x, self.kernel)
+        if activation == 'snake':
+            return bias_snake(h, self.bias)
+        h = h + self.bias[:, None, :]
+        return h if activation is None else get_activation(activation)(h)
+
+
+class NPPNetLight(nn.Module):
+    """Search-mode model (reference: models/networks.py:176-263), stacked
+    over n_cand candidates. forward(x_pos, x_periodic): x_pos (M, P) is the
+    Fourier encoding of the raw coords, shared by the candidates;
+    x_periodic (n_cand, M, C) each candidate's periodic warp (not
+    re-encoded). Returns (n_cand, M, output_ch). The layers' draws come
+    from `gen` in the order periodic_0.., feature1, scale_0, feature2,
+    pos_0, rgb (kernel, then bias)."""
+
+    def __init__(self, n_cand: int, input_ch_periodic_all: int,
+                 input_ch_pos: int, gen: torch.Generator, n_scales: int = 1,
+                 n_offsets: int = 5, n_angle_offsets: int = 1, depth: int = 4,
+                 width: int = 256, output_ch: int = 3,
+                 skips: Tuple[int, ...] = (4,), activation: str = 'snake'):
+        super().__init__()
+        self.n_cand, self.depth, self.skips = n_cand, depth, tuple(skips)
+        self.activation, self.n_scales = activation, n_scales
+        period_inds, scale_inds = light_channel_split(
+            input_ch_periodic_all, n_scales, n_offsets, n_angle_offsets)
+        self.period_inds = None \
+            if period_inds == list(range(input_ch_periodic_all)) \
+            else period_inds
+        self.scale_inds = scale_inds
+        n_in = len(period_inds)
+        d_in = n_in
+        for i in range(depth):
+            setattr(self, f'periodic_{i}', StackedLinear(n_cand, d_in, width,
+                                                         gen))
+            d_in = width + (n_in if i in self.skips else 0)
+        self.feature1 = StackedLinear(n_cand, d_in, width, gen)
+        d_pos = width + input_ch_pos
+        if n_scales > 1:
+            self.scale_0 = StackedLinear(n_cand, width + len(scale_inds),
+                                         width, gen)
+            self.feature2 = StackedLinear(n_cand, width, width, gen)
+            d_pos += width
+        self.pos_0 = StackedLinear(n_cand, d_pos, width // 2, gen)
+        self.rgb = StackedLinear(n_cand, width // 2, output_ch, gen)
+
+    def forward(self, x_pos: torch.Tensor,
+                x_periodic: torch.Tensor) -> torch.Tensor:
+        act = self.activation
+        inp = x_periodic if self.period_inds is None \
+            else x_periodic[..., self.period_inds]
+        h = inp
+        for i in range(self.depth):
+            h = getattr(self, f'periodic_{i}')(h, act)
+            if i in self.skips:
+                h = torch.cat([inp, h], dim=-1)
+        feature1 = self.feature1(h)
+        pos = x_pos.expand(self.n_cand, -1, -1)
+        if self.n_scales > 1:
+            aux = x_periodic[..., self.scale_inds]
+            h = self.scale_0(torch.cat([feature1, aux], dim=-1), act)
+            h = torch.cat([feature1, self.feature2(h), pos], dim=-1)
+        else:
+            h = torch.cat([feature1, pos], dim=-1)
+        return self.rgb(self.pos_0(h, act))
 
 
 def render_activation(raw: torch.Tensor, normalize_type: int) -> torch.Tensor:

@@ -1,0 +1,326 @@
+"""Proposal ranking: fit a light NPP-Net per candidate periodicity and score
+the held-out pseudo-mask region (reference: NPP_proposal/search.py:78-219),
+a port of `npp_tpu/proposal/ranking.py`.
+
+All candidates advance in lockstep, as in npp_tpu: one stacked model
+(nn/mlp.py::NPPNetLight, weights (n_cand, in, out) run by torch.bmm),
+every candidate starting from the same init and seeing the same pixel
+batches (the reference reseeds per candidate, search.py:91-92). On the
+card each step's activated layers go through K2 with a bias per candidate,
+and the adaptive robust pixel loss of all candidates through one K4
+forward and one K4 backward launch (losses/robust.py::stacked_nll_mean_sum).
+
+npp_tpu pads the candidate axis (rank_pad_candidates) and the pixel pool
+and chunk counts to fixed sizes so that its XLA executables are reused
+across images; the values do not depend on the padding, and the port does
+none. Its suite ranking and candidate mesh are not ported yet
+(ROADMAP.md A.7).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import nerf_embed_dim, periodic_embed_dim
+from ..device import matmul_precision, resolve_device
+from ..losses.contextual import ContextualLoss
+from ..losses.lpips import LPIPS
+from ..losses.pixel import img2mse
+from ..losses.robust import adaptive_init, stacked_nll_mean_sum
+from ..models.trainer import make_schedule
+from ..nn.embedder import (fourier_encode, gaussian_freq_bands,
+                           normalize_coords, periodic_warp)
+from ..nn.mlp import NPPNetLight, render_activation
+
+RENDER_CHUNK = 1 << 14
+CX_GROUP_BYTES = 1 << 33   # the CX chain's (P, P) matrices per group
+
+
+def combine_scores(cfg, comps: dict) -> dict:
+    """The per-candidate score components combined into one distance per
+    ranking proxy (lower = better); a copy of npp_tpu's (ranking.py:36-64).
+
+      'reference'   30*LPIPS + 1*CX on the zero-canvas bbox crop;
+      'window'      the same on the held-out window composited into the
+                    true image;
+      'mse'         log10 of the held-out pixel MSE;
+      'heldout_mse' reference + rank_pix_weight * log10(MSE).
+    """
+    pw, cw = cfg.perceptual_weight, cfg.contextual_weight
+    d_ref = pw * comps['lpips_bbox'] + cw * comps['cx_bbox']
+    d_win = pw * comps['lpips_comp'] + cw * comps['cx_comp']
+    d_pix = np.log10(np.maximum(comps['val_mse'], 1e-8))
+    w_pix = float(getattr(cfg, 'rank_pix_weight', 1.0))
+    return {
+        'reference': d_ref,
+        'window': d_win,
+        'mse': d_pix,
+        'heldout_mse': d_ref + w_pix * d_pix,
+    }
+
+
+def _eval_inputs(cfg, i_val, norm_res):
+    """The held-out region's crop (search.py:150-205): returns
+    (crop_y0, crop_x0, crop_h, crop_w).
+
+    The crop spans the val coords with exclusive ends (+1), at least 32 px
+    (the deepest VGG taps), rounded up to a multiple of cfg.crop_bucket
+    when set, and clamped to the tight image dims `norm_res`."""
+    nh, nw = norm_res
+    val = np.asarray(i_val, np.int64)
+    hmin, hmax = int(val[:, 0].min()), int(val[:, 0].max()) + 1
+    wmin, wmax = int(val[:, 1].min()), int(val[:, 1].max()) + 1
+    bucket = int(getattr(cfg, 'crop_bucket', 0))
+
+    def _bucketed(lo, hi, limit):
+        size = max(hi - lo, 32)
+        if bucket:
+            size = -(-size // bucket) * bucket
+        size = min(size, limit)
+        hi = min(limit, lo + size)
+        lo = max(0, hi - size)
+        return lo, hi
+    hmin, hmax = _bucketed(hmin, hmax, nh)
+    wmin, wmax = _bucketed(wmin, wmax, nw)
+    return hmin, wmin, hmax - hmin, wmax - wmin
+
+
+class RankParams(nn.Module):
+    """Everything the ranking's Adam trains, stacked over the candidates:
+    the light MLP and the adaptive pixel-loss latents (n_cand, 1, 3)."""
+
+    def __init__(self, mlp: NPPNetLight, n_cand: int):
+        super().__init__()
+        self.mlp = mlp
+        self.adaptive_pix = adaptive_init(3, n_stack=n_cand)
+
+
+def init_rank_params(cfg, n_cand: int, device: torch.device) -> RankParams:
+    """One init (from a generator seeded cfg.seed) broadcast to every
+    candidate (npp_tpu ranking.py:93-98)."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    mlp = NPPNetLight(
+        n_cand, periodic_embed_dim(cfg, include_input=False),
+        nerf_embed_dim(cfg, 2, include_input=True), gen,
+        n_scales=len(cfg.freq_scales), n_offsets=len(cfg.freq_offsets),
+        n_angle_offsets=len(cfg.angle_offsets), depth=cfg.netdepth,
+        width=cfg.netwidth, activation=cfg.activation)
+    return RankParams(mlp, n_cand).to(device)
+
+
+class Lattices:
+    """The candidates' lattices and the embedding constants, on one device:
+    angles, periods (n_cand, 2), the Fourier bands and the tight dims that
+    normalise the coordinates."""
+
+    def __init__(self, cfg, angles, periods, bands, norm_res,
+                 device: torch.device):
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        self.cfg, self.norm_res = cfg, (int(norm_res[0]), int(norm_res[1]))
+        self.angles, self.periods, self.bands = t(angles), t(periods), t(bands)
+
+    def render(self, params: RankParams, coords: torch.Tensor) -> torch.Tensor:
+        """coords (M, 2) float (y, x) -> RGB (n_cand, M, 3)."""
+        cfg = self.cfg
+        e_pos = fourier_encode(normalize_coords(coords, self.norm_res),
+                               self.bands, True)
+        e_per = periodic_warp(coords, self.angles, self.periods,
+                              cfg.freq_scales, cfg.freq_offsets,
+                              cfg.angle_offsets, self.norm_res,
+                              include_input=False)
+        return render_activation(params.mlp(e_pos, e_per), cfg.normalize_type)
+
+
+def rank_loss(params: RankParams, lat: Lattices, coords: torch.Tensor,
+              gt: torch.Tensor) -> torch.Tensor:
+    """The sum over candidates of each one's pixel loss on one batch (its
+    gradient is every candidate's own; npp_tpu ranking.py:118-125)."""
+    pred = lat.render(params, coords)
+    if lat.cfg.loss_type == 'robust_loss_adaptive':
+        return stacked_nll_mean_sum(pred - gt, params.adaptive_pix)
+    return sum(img2mse(p, gt, lat.cfg.loss_type) for p in pred)
+
+
+def draw_indices(gen: torch.Generator, n_pool: int,
+                 n_rand: int) -> torch.Tensor:
+    """One step's pixel batch: n_rand indices into the training pool."""
+    return torch.randint(0, n_pool, (n_rand,), generator=gen)
+
+
+def fit_candidates(params: RankParams, lat: Lattices, img: torch.Tensor,
+                   pool: torch.Tensor, gen: torch.Generator,
+                   n_iters: int) -> torch.Tensor:
+    """The lockstep fit (npp_tpu ranking.py:171-195): each step draws
+    N_rand indices of `pool` from `gen` and takes one Adam step (b1 0.9,
+    b2 0.999) at lrate * 0.1^(step / (lrate_decay * 100)), the forward and
+    backward under cfg.matmul_precision. Returns the per-step loss, the
+    mean over candidates, (n_iters,) on the device."""
+    cfg = lat.cfg
+    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    schedule = make_schedule(cfg)
+    n_cand = lat.angles.shape[0]
+    losses = []
+    with matmul_precision(cfg.matmul_precision):
+        for step in range(n_iters):
+            for group in opt.param_groups:
+                group['lr'] = schedule(step)
+            idx = draw_indices(gen, len(pool), cfg.N_rand)
+            pix = pool[idx.to(pool.device)]
+            opt.zero_grad(set_to_none=True)
+            loss = rank_loss(params, lat, pix.to(torch.float32),
+                             img[pix[:, 0], pix[:, 1]])
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach() / n_cand)
+    return torch.stack(losses)
+
+
+def _per_sample(fn, n: int, group: int):
+    """fn(lo, hi) -> (hi - lo,) values, over [0, n) in groups."""
+    return torch.cat([fn(lo, min(lo + group, n)) for lo in range(0, n, group)])
+
+
+@torch.no_grad()
+def eval_candidates(cfg, params: RankParams, lat: Lattices,
+                    img: torch.Tensor, i_val: np.ndarray, crop,
+                    percep: LPIPS, contextual: ContextualLoss,
+                    stats: Optional[dict] = None) -> Dict[str, np.ndarray]:
+    """Render every held-out pixel per candidate and compute the five score
+    components per candidate (npp_tpu ranking.py:197-258), in full f32:
+    LPIPS and CX on the bbox crop of the held-out pixels over a zero
+    canvas, the same on that crop with the held-out pixels composited into
+    the image, and the held-out pixel MSE. CX runs on groups of
+    candidates, as many as keep its (P, P) matrices within CX_GROUP_BYTES."""
+    dev = img.device
+    h, w = img.shape[:2]
+    y0, x0, ch, cw = crop
+    val = torch.as_tensor(np.asarray(i_val), dtype=torch.long, device=dev)
+    vy, vx = val[:, 0], val[:, 1]
+    n_cand = lat.angles.shape[0]
+
+    def crop_of(x):
+        return x[..., y0:y0 + ch, x0:x0 + cw, :]
+
+    def sync():
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+
+    sync()
+    t0 = time.time()
+    coords = val.to(torch.float32)
+    out = torch.cat([lat.render(params, c) for c in
+                     coords.split(RENDER_CHUNK)], dim=1)     # (B, Nv, 3)
+    gt_vals = img[vy, vx]
+    gt_canvas = torch.zeros((h, w, 3), device=dev)
+    gt_canvas[vy, vx] = gt_vals
+    in_val = torch.zeros((h, w, 1), device=dev)
+    in_val[vy, vx] = 1.0
+    pred = torch.zeros((n_cand, h, w, 3), device=dev)
+    pred[:, vy, vx] = out
+    pred_crop = crop_of(pred)
+    gt_crop = crop_of(gt_canvas)[None].expand(n_cand, -1, -1, -1)
+    ctx_crop = crop_of(img)[None].expand(n_cand, -1, -1, -1)
+    in_crop = crop_of(in_val)
+    comp_crop = ctx_crop * (1.0 - in_crop) + pred_crop * in_crop
+    val_mse = torch.mean((out - gt_vals) ** 2, dim=(1, 2))
+    sync()
+    t1 = time.time()
+    lpips_bbox = percep(pred_crop, gt_crop).reshape(n_cand)
+    lpips_comp = percep(comp_crop, ctx_crop).reshape(n_cand)
+    sync()
+    t2 = time.time()
+    p = (ch // 4) * (cw // 4)
+    group = max(1, min(n_cand, CX_GROUP_BYTES // (4 * 4 * p * p)))
+    mask = in_crop[None].expand(n_cand, -1, -1, -1) \
+        if getattr(cfg, 'cx_mask_pad', False) else None
+    cx_bbox = _per_sample(lambda a, b: contextual(
+        pred_crop[a:b], gt_crop[a:b], per_sample=True,
+        spatial_mask=None if mask is None else mask[a:b]), n_cand, group)
+    cx_comp = _per_sample(lambda a, b: contextual(
+        comp_crop[a:b], ctx_crop[a:b], per_sample=True), n_cand, group)
+    sync()
+    t3 = time.time()
+    if stats is not None:
+        stats.update(eval_render_s=t1 - t0, eval_lpips_s=t2 - t1,
+                     eval_cx_s=t3 - t2, cx_positions=p, cx_group=group,
+                     crop=(ch, cw))
+    comps = {'lpips_bbox': lpips_bbox, 'cx_bbox': cx_bbox,
+             'lpips_comp': lpips_comp, 'cx_comp': cx_comp,
+             'val_mse': val_mse}
+    return {k: v.cpu().numpy().astype(np.float64) for k, v in comps.items()}
+
+
+def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
+                   i_val: np.ndarray, all_angles, all_periods,
+                   percep: LPIPS, contextual: ContextualLoss,
+                   norm_res=None, return_components: bool = False,
+                   params_override: Optional[dict] = None,
+                   bands_override: Optional[Sequence[float]] = None,
+                   device=None, stats: Optional[dict] = None):
+    """Distance per candidate (lower = better periodicity), as npp_tpu's
+    rank_proposals. Runs on the card unless device='cpu' is passed.
+
+    norm_res: the tight per-image dims that normalise the coordinates and
+    clamp the crop (default: the canvas). return_components: also return
+    the raw per-candidate score components (see combine_scores).
+    params_override: a state_dict of RankParams' 'mlp' (utils/convert.py::
+    params_from_jax of npp_tpu's stacked tree) to score without fitting;
+    bands_override: the Fourier bands. stats: a dict to fill with the
+    phases' walls ('fit_s', 'fit_ms_per_step', 'eval_s' and the eval's
+    split) and the fit's per-step losses ('fit_losses')."""
+    device = resolve_device(device)
+    h, w = masked_img.shape[:2]
+    norm_res = norm_res if norm_res is not None else (h, w)
+    n_cand = len(all_angles)
+    bands = bands_override if bands_override is not None else \
+        gaussian_freq_bands(torch.Generator().manual_seed(cfg.seed),
+                            cfg.multires)
+    lat = Lattices(cfg, all_angles, all_periods, bands, norm_res, device)
+    img = torch.as_tensor(np.asarray(masked_img), dtype=torch.float32,
+                          device=device)
+    params = init_rank_params(cfg, n_cand, device)
+    stats = {} if stats is None else stats
+
+    def sync():
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+
+    with matmul_precision('float32'):    # the fit sets its own
+        if params_override is not None:
+            params.mlp.load_state_dict(params_override['mlp'])
+        else:
+            pool = torch.as_tensor(np.asarray(i_train), dtype=torch.long,
+                                   device=device)
+            sync()
+            t0 = time.time()
+            losses = fit_candidates(
+                params, lat, img, pool,
+                torch.Generator().manual_seed(cfg.seed + 1), cfg.N_iters)
+            losses = losses.cpu().numpy()
+            fit_s = time.time() - t0
+            stats.update(fit_s=fit_s, fit_losses=losses,
+                         fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
+            print(f'[search] fit: {cfg.N_iters} steps of {n_cand} '
+                  f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step, '
+                  f'loss {losses[0]:.4f} -> {losses[-1]:.4f}', flush=True)
+        t0 = time.time()
+        comps = eval_candidates(cfg, params, lat, img, i_val,
+                                _eval_inputs(cfg, i_val, norm_res), percep,
+                                contextual, stats)
+        stats['eval_s'] = time.time() - t0
+    scores = combine_scores(cfg, comps)
+    distances = scores[getattr(cfg, 'rank_proxy', 'reference')]
+    for c in range(n_cand):
+        print(f'[search] candidate {c + 1}/{n_cand} '
+              f'distance={distances[c]:.4f} '
+              f'(ref={scores["reference"][c]:.4f} '
+              f'mse={comps["val_mse"][c]:.5f})')
+    if return_components:
+        return np.asarray(distances), comps
+    return np.asarray(distances)

@@ -1,0 +1,190 @@
+"""Periodicity proposal orchestrator (reference: NPP_proposal/search.py:28-285),
+a port of `npp_tpu/proposal/search.py::run_search`: detect candidate
+periodicities, rank them by light-model fits, and build the odgt record
+(and, with save=True, the PNGs and lattice drawings) that the task
+pipelines read.
+
+Detection runs on the host with the OpenCV-free primitives of
+`proposal/cv.py`, its loss grid on the device through torch.fft; the
+ranking's fit and eval run on the device. Only save=True needs OpenCV
+(utils/io.py, utils/visualizer.py import it inside their functions). The
+suite search (run_search_suite) is not ported yet (ROADMAP.md A.7).
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..losses.contextual import ContextualLoss
+from ..losses.lpips import LPIPS
+from ..utils.io import read_example_dir, write_gray, write_odgt, write_rgb
+from ..utils.visualizer import GridProgram, mask2ltrb
+from .pseudo_mask import build_pseudo_split
+from .ranking import combine_scores, rank_proposals
+from .search_engine import search_periodicity_by_feat
+
+
+def _prepare_search(cfg, data: dict, device: torch.device) -> dict:
+    """Host phase of one search: tight-canvas pad, candidate detection
+    (its loss grid on `device`) and the pseudo-split. `data` holds the
+    example's arrays as utils/io.py::read_example_dir returns them."""
+    name = cfg.datadir.rstrip('/').split('/')[-1] or 'example'
+    masked_img = data['masked_img']
+    unknown_mask = data['unknown_mask']
+    valid_mask = data['valid_mask']
+
+    # detection and ranking run on the canvas_multiple canvas (npp_tpu's
+    # suite-wide canvas_override pad changes no distance and is not done)
+    oh, ow = masked_img.shape[:2]
+    m = getattr(cfg, 'canvas_multiple', 0)
+    dh, dw = (-(-oh // m) * m, -(-ow // m) * m) if m else (oh, ow)
+    if (dh, dw) != (oh, ow):
+        pad3 = ((0, dh - oh), (0, dw - ow), (0, 0))
+        masked_img = np.pad(masked_img, pad3)
+        unknown_mask = np.pad(unknown_mask, pad3)
+        valid_mask = np.pad(valid_mask, pad3)
+
+    # candidate detection (reference: loaders.py:28-32)
+    all_angles, all_periods, all_shifts = search_periodicity_by_feat(
+        np.uint8(masked_img * 255),
+        np.uint8(valid_mask * unknown_mask)[..., 0],
+        repeat_range=cfg.search_range, edge_searching=cfg.edge_searching,
+        gray_only=cfg.gray_only, device=device)
+    if not all_angles:
+        raise RuntimeError(f'no periodicity candidates found for {name}')
+
+    # pseudo-mask split (reference: loaders.py:34-54)
+    _, i_train, i_val = build_pseudo_split(unknown_mask, valid_mask)
+    return {
+        'cfg': cfg, 'name': name,
+        'file_dir': os.path.join(cfg.outdir, name),
+        'masked_img': masked_img, 'gt_img': data['gt_img'],
+        'unknown_mask': unknown_mask, 'valid_mask': valid_mask,
+        'oh': oh, 'ow': ow, 'dh': dh, 'dw': dw,
+        'all_angles': all_angles, 'all_periods': all_periods,
+        'all_shifts': all_shifts, 'i_train': i_train, 'i_val': i_val,
+    }
+
+
+def _finish_search(prep: dict, distances: np.ndarray, rank_comps: dict,
+                   save: bool) -> dict:
+    """The odgt record (reference: search.py:221-280) from the ranking's
+    outputs; with `save`, also the lattice drawings, the PNGs and
+    config.odgt under cfg.outdir/<name>."""
+    cfg = prep['cfg']
+    file_dir = prep['file_dir']
+    all_angles, all_periods = prep['all_angles'], prep['all_periods']
+    all_shifts = prep['all_shifts']
+    scores = combine_scores(cfg, rank_comps)
+
+    k = min(cfg.topk_detection, len(distances))
+    order = np.argsort(distances, kind='stable')[:k]
+
+    best_shifts = [[list(map(float, all_shifts[i][j])) for j in range(2)]
+                   for i in order]
+    best_periods = [list(map(float, all_periods[i])) for i in order]
+    best_angles = [list(map(float, all_angles[i])) for i in order]
+
+    odgt = {
+        'fpath_masked_img': f'{file_dir}/masked_img.png',
+        'fpath_valid_mask': f'{file_dir}/valid_mask.png',
+        'fpath_mask': f'{file_dir}/unknown_mask.png',
+        'fpath_gt_img': f'{file_dir}/gt_img.png',
+        'selected_angles': best_angles,
+        'selected_periods': best_periods,
+        'selected_shifts': best_shifts,
+        'search_range': list(cfg.search_range),
+        'epoch': cfg.N_iters,
+        'distances': [float(distances[i]) for i in order],
+        # the aux rank gate reads the reference proxy's distances
+        # (models/loaders.py::_topk_periodicity)
+        'distances_gate': [float(scores['reference'][i]) for i in order],
+        'rank_proxy': getattr(cfg, 'rank_proxy', 'reference'),
+        # every candidate's lattice and every proxy's score, in detection
+        # order
+        'rank_candidates': {
+            'angles': [list(map(float, a)) for a in all_angles],
+            'periods': [list(map(float, p)) for p in all_periods],
+            'shifts': [[list(map(float, all_shifts[i][j])) for j in range(2)]
+                       for i in range(len(all_shifts))],
+            'scores': {name: [float(x) for x in s]
+                       for name, s in scores.items()},
+            'components': {name: [float(x) for x in c]
+                           for name, c in rank_comps.items()},
+        },
+    }
+    for i in range(k):
+        odgt[f'fpath_reg_img_{i}'] = f'{file_dir}/reg_img_{i}.png'
+    if not save:
+        return odgt
+
+    # lattice drawings (reference: search.py:249-269) on the image cropped
+    # back from the padded canvas
+    oh, ow = prep['oh'], prep['ow']
+    masked_img = prep['masked_img'][:oh, :ow]
+    unknown_mask = prep['unknown_mask'][:oh, :ow]
+    valid_mask = prep['valid_mask'][:oh, :ow]
+    ltrb = mask2ltrb(valid_mask[..., 0])
+    vis_img = np.uint8(masked_img * 255)
+    for i in range(k):
+        vis = GridProgram(resolution=vis_img.shape[:2], base_point=ltrb[:2],
+                          first_shift=best_shifts[i][0],
+                          second_shift=best_shifts[i][1])
+        reg_img, _ = vis.draw(vis_img.copy(), color=(255, 255, 0))
+        write_rgb(os.path.join(file_dir, f'reg_img_{i}.png'), reg_img / 255.0)
+    write_gray(os.path.join(file_dir, 'valid_mask.png'), valid_mask)
+    write_gray(os.path.join(file_dir, 'unknown_mask.png'), unknown_mask)
+    write_rgb(os.path.join(file_dir, 'masked_img.png'), masked_img)
+    write_rgb(os.path.join(file_dir, 'gt_img.png'), prep['gt_img'])
+    write_odgt(file_dir, odgt)
+    print(f'[search] wrote {file_dir}/config.odgt', flush=True)
+    return odgt
+
+
+def run_search(cfg, percep: Optional[LPIPS] = None,
+               contextual: Optional[ContextualLoss] = None, device=None,
+               data: Optional[dict] = None, save: bool = True,
+               stats: Optional[dict] = None) -> dict:
+    """Search one example: cfg.datadir's four PNGs, or `data` (the arrays
+    utils/io.py::read_example_dir returns; utils/synthetic.py::
+    synthetic_search_data makes them from a seed). Runs on the card unless
+    device='cpu' is passed. Returns the odgt record; with save=True it is
+    also written, with the PNGs, under cfg.outdir (needs OpenCV). stats: a
+    dict to fill with the phase walls ('detect_s', 'rank_s',
+    'artefacts_s') and rank_proposals' split."""
+    device = resolve_device(device)
+    stats = {} if stats is None else stats
+    t_start = time.time()
+    if data is None:
+        data = read_example_dir(cfg.datadir)
+    prep = _prepare_search(cfg, data, device)
+    t_detect = time.time()
+    print(f'[search] {len(prep["all_angles"])} candidates detected '
+          f'({t_detect - t_start:.1f}s)', flush=True)
+
+    # ranking (reference: search.py:78-219)
+    if percep is None:
+        percep = LPIPS(device, net='vgg')
+    if contextual is None:
+        contextual = ContextualLoss(device)
+    distances, rank_comps = rank_proposals(
+        cfg, prep['masked_img'], prep['i_train'], prep['i_val'],
+        prep['all_angles'], prep['all_periods'], percep, contextual,
+        norm_res=(prep['dh'], prep['dw']), return_components=True,
+        device=device, stats=stats)
+    t_rank = time.time()
+
+    odgt = _finish_search(prep, distances, rank_comps, save)
+    t_end = time.time()
+    stats.update(detect_s=t_detect - t_start, rank_s=t_rank - t_detect,
+                 artefacts_s=t_end - t_rank, total_s=t_end - t_start)
+    print(f'[search] phases: detect={t_detect - t_start:.1f}s '
+          f'rank={t_rank - t_detect:.1f}s artefacts={t_end - t_rank:.1f}s '
+          f'total={t_end - t_start:.1f}s', file=sys.stderr, flush=True)
+    return odgt

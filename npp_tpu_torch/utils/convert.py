@@ -3,9 +3,12 @@
 `params_from_jax` takes plain numpy nested dicts (the caller converts the
 JAX arrays, e.g. with a tree-map of np.asarray) and never imports JAX:
  - flax Dense {'kernel': (in, out), 'bias': (out,)} -> nn.Linear weight
-   (out, in) and bias;
+   (out, in) and bias; a stacked Dense (the search's NPPNetLight,
+   {'kernel': (n_cand, in, out), 'bias': (n_cand, out)}) -> the same
+   tensors under StackedLinear's 'kernel' and 'bias';
  - flax Conv kernels HWIO -> OIHW;
- - AdaptiveLossParams latents (1, C), one or a tuple of them;
+ - AdaptiveLossParams latents (1, C), one or a tuple of them, or stacked
+   (n_cand, 1, C);
  - the embedder's freq_bands, angles and periods.
 """
 from __future__ import annotations
@@ -21,10 +24,15 @@ def _t(a) -> torch.Tensor:
 
 
 def dense_state_dict(mlp: Dict[str, Dict[str, Any]]) -> Dict[str, torch.Tensor]:
-    """flax {'<layer>': {'kernel', 'bias'}} -> nn.Module state_dict."""
+    """flax {'<layer>': {'kernel', 'bias'}} -> nn.Module state_dict (an
+    nn.Linear's, or a StackedLinear's for a kernel with a candidate axis)."""
     sd = {}
     for name, p in mlp.items():
-        sd[f'{name}.weight'] = _t(p['kernel']).T.contiguous()
+        kernel = _t(p['kernel'])
+        if kernel.dim() == 3:
+            sd[f'{name}.kernel'] = kernel
+        else:
+            sd[f'{name}.weight'] = kernel.T.contiguous()
         sd[f'{name}.bias'] = _t(p['bias'])
     return sd
 
@@ -35,13 +43,17 @@ def conv_hwio_to_oihw(kernel) -> torch.Tensor:
 
 def latents_state_dict(lat: Any) -> Dict[str, torch.Tensor]:
     """AdaptiveLossParams as {'latent_alpha', 'latent_scale'} or a
-    (latent_alpha, latent_scale) pair -> AdaptiveLossParams state_dict."""
+    (latent_alpha, latent_scale) pair -> AdaptiveLossParams state_dict;
+    stacked latents (n, 1, C) keep their shape."""
     if isinstance(lat, dict):
         a, s = lat['latent_alpha'], lat['latent_scale']
     else:
         a, s = lat
-    return {'latent_alpha': _t(a).reshape(1, -1),
-            'latent_scale': _t(s).reshape(1, -1)}
+
+    def shaped(v):
+        v = _t(v)
+        return v if v.dim() == 3 else v.reshape(1, -1)
+    return {'latent_alpha': shaped(a), 'latent_scale': shaped(s)}
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -3,7 +3,8 @@
 A copy of `bench.py::_synthetic_data` (bench.py:47-68): a 384x512
 near-periodic image with an 80x100 hole and three detected lattices, so the
 main path runs at the reference's default shapes (patch size 160, 1386
-embedding channels) on any machine.
+embedding channels) on any machine. `synthetic_search_data` gives the same
+image and masks without the lattices, for the periodicity search.
 """
 from __future__ import annotations
 
@@ -16,9 +17,8 @@ PATCH_SIZE = 160
 TOPK = 3
 
 
-def synthetic_data(seed: int = 0, h: int = H, w: int = W) -> TaskData:
-    """The example at (h, w); the hole scales with the canvas (bench.py's
-    80x100 hole at the default size)."""
+def _image_and_mask(seed: int, h: int, w: int):
+    """The near-periodic image and its known mask (0 in the hole)."""
     rng = np.random.RandomState(seed)
     yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing='ij')
     img = np.stack([
@@ -29,6 +29,13 @@ def synthetic_data(seed: int = 0, h: int = H, w: int = W) -> TaskData:
     img = np.clip(img, 0, 1)
     mask = np.ones((h, w, 1))
     mask[150 * h // H:230 * h // H, 200 * w // W:300 * w // W] = 0
+    return img, mask
+
+
+def synthetic_data(seed: int = 0, h: int = H, w: int = W) -> TaskData:
+    """The example at (h, w); the hole scales with the canvas (bench.py's
+    80x100 hole at the default size)."""
+    img, mask = _image_and_mask(seed, h, w)
     valid = np.ones((h, w, 1))
     train = np.stack(np.nonzero((mask * valid)[..., 0]), 1)
     val = np.stack(np.nonzero(((1 - mask) * valid)[..., 0]), 1)
@@ -39,3 +46,13 @@ def synthetic_data(seed: int = 0, h: int = H, w: int = W) -> TaskData:
                     valid_mask=valid, i_train=train, i_val=val,
                     selected_shifts=shifts, selected_angles=angles,
                     selected_periods=periods, patch_size=PATCH_SIZE)
+
+
+def synthetic_search_data(seed: int = 0, h: int = H, w: int = W) -> dict:
+    """The same image and masks without the lattices, as the search reads
+    an example directory (utils/io.py::read_example_dir): 'masked_img',
+    'gt_img', 'unknown_mask' (1 on known pixels) and 'valid_mask'. The
+    search detects the lattices and makes its own pixel pools."""
+    img, mask = _image_and_mask(seed, h, w)
+    return {'masked_img': img * mask, 'gt_img': img, 'unknown_mask': mask,
+            'valid_mask': np.ones((h, w, 1))}

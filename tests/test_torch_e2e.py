@@ -65,4 +65,25 @@ def test_cli_complete_runs_on_the_cpu(example_dir, tmp_path, capsys):  # noqa: F
                  '--use_perceptual_loss', 'false']) == 0
     assert 'val_psnr' in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        main(['search', '--datadir', example_dir])
+        main(['segment', '--datadir', example_dir])
+
+
+def test_cli_search_then_complete_on_the_cpu(example_dir, tmp_path,  # noqa: F811
+                                             capsys):
+    """`search` writes a record and its PNGs that `complete` then reads."""
+    from npp_tpu_torch.cli import main
+    out = str(tmp_path / 'det')
+    assert main(['search', '--datadir', example_dir, '--outdir', out,
+                 '--device', 'cpu', '--netwidth', '16', '--netdepth', '2',
+                 '--N_rand', '64', '--N_iters', '3',
+                 '--search_range', '2,5,1']) == 0
+    assert 'selected_periods' in capsys.readouterr().out
+    name = example_dir.rstrip('/').split('/')[-1]
+    assert main(['complete', '--datadir', os.path.join(out, name),
+                 '--basedir', str(tmp_path / 'res'), '--device', 'cpu',
+                 '--netwidth', '16', '--netdepth', '2', '--N_rand', '64',
+                 '--patch_num', '1', '--num_real_patch_per_sample', '2',
+                 '--N_iters', '3', '--i_testset', '2', '--i_print', '2',
+                 '--use_perceptual_loss', 'false',
+                 '--use_contextual_loss', 'false']) == 0
+    assert 'val_psnr' in capsys.readouterr().out

@@ -207,13 +207,18 @@ def _assert_no_worse_than_plain(fn, plain, inputs, consts, g):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('n', [512, 256, 3])
-def test_k2_forward_and_backward_match_plain_on_the_card(n):
+@pytest.mark.parametrize('batch,n', [(None, 512), (None, 256), (None, 3),
+                                     (9, 256), (9, 128), (1, 64)])
+def test_k2_forward_and_backward_match_plain_on_the_card(batch, n):
+    """(4099, n) with a bias (n,), or a batch (B, 1031, n) with a bias per
+    batch (B, n), the search's stacked layers."""
     dev = _card()
     gen = torch.Generator().manual_seed(n)
-    h = torch.randn(4099, n, generator=gen).to(dev)
-    b = torch.randn(n, generator=gen).to(dev)
-    g = torch.randn(4099, n, generator=gen).to(dev)
+    lead = () if batch is None else (batch,)
+    m = 4099 if batch is None else 1031
+    h = torch.randn(*lead, m, n, generator=gen).to(dev)
+    b = torch.randn(*lead, n, generator=gen).to(dev)
+    g = torch.randn(*lead, m, n, generator=gen).to(dev)
     _assert_no_worse_than_plain(snake.bias_snake, snake.bias_snake_plain,
                                 (h, b), (), g)
 
@@ -237,7 +242,9 @@ def test_k4_forward_and_backward_match_plain_on_the_card(m, c):
 # 160x160 patches; the five LPIPS layers also as one grouped launch
 K4_SHAPES = [(8192, 3), (153600, 64), (38400, 128), (9600, 256),
              (2400, 512), (600, 512)]
-K4_CASES = [[shape] for shape in K4_SHAPES] + [K4_SHAPES[1:]]
+# the search's lockstep fit: N_rand 2048 rows, 9 candidates x 3 channels
+K4_SEARCH = (2048, 27)
+K4_CASES = [[shape] for shape in K4_SHAPES] + [K4_SHAPES[1:]] + [[K4_SEARCH]]
 
 
 def _group(n, fn):
