@@ -5,23 +5,29 @@ plain versions.
 
 Phases, in order; any failure exits non-zero:
  1. device: the card's name and power limit;
- 2. build: K1 (csrc/periodic_embed.cu) and K4's forward and backward
-    (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu), one nvcc each,
-    started together, printing `-Xptxas -v`;
+ 2. build: K1 (csrc/periodic_embed.cu, forward and backward) and K4's
+    forward and backward (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu),
+    one nvcc each, started together, printing `-Xptxas -v`;
  3. kernels, with TF32 off: each kernel's wrapper against its plain
-    PyTorch version on the card at the main path's shapes (K1 in f32 and
-    bf16; K2 forward and backward, and batched at the search's 9 x 2048 x
-    256 and 9 x 2048 x 128; K4 at the search's 2048 x 27 both ways with
-    every alpha; K4's forward at the pixel loss's and
-    the evaluation's shapes and as one grouped launch over the five LPIPS
-    layers, with alpha spread and at exactly 0.001, 1.0 and 1.999, and
-    within 1e-6 of float64; K4's backward at each shape), timed by
-    CUDA-graph replay (device time) and by eager launches; then one fit
-    step with injected inputs and matmul_precision='float32' on the card
-    against the same step on the CPU (plain versions);
- 4. TF32: the gradients of the CX and LPIPS-robust terms and of one
-    default step under the default matmul_precision ('bfloat16': TF32 on)
-    against 'float32', at the flagship patch scale; cosine >= 0.99;
+    PyTorch version on the card at the main paths' shapes (K1 in f32 and
+    bf16, and its backward in the coordinates at 59,392 rows; K2 forward
+    and backward, and batched at the search's 9 x 2048 x 256 and 9 x 2048
+    x 128; K4 at the search's 2048 x 27 both ways with every alpha; K4's
+    forward at the pixel loss's and the evaluation's shapes and as one
+    grouped launch over the five LPIPS layers, with alpha spread and at
+    exactly 0.001, 1.0 and 1.999, and within 1e-6 of float64; K4's
+    backward at each shape; K4's wide rows at the style loss's 6 x 4,096,
+    6 x 16,384 and 6 x 65,536, the forward as one grouped launch, both
+    ways at every alpha), timed by CUDA-graph replay (device time) and by
+    eager launches; then one completion step, one with the warp field and
+    one remapping step, each with injected inputs and
+    matmul_precision='float32' on the card against the same step on the
+    CPU (plain versions); the blur map of the remapping example with its
+    eigenvalues on the card against the CPU;
+ 4. TF32: the gradients of the CX, LPIPS-robust and adaptive style terms,
+    of one default completion step and of one remapping step under the
+    default matmul_precision ('bfloat16': TF32 on) against 'float32', at
+    the flagship patch scales; cosine >= 0.99;
  5. main path: `run_completion` on the 384x512 synthetic example at the
     default CompletionConfig (TF32 in the steps and the render), 21
     iterations (two blocks of 10 steps, evals at 10 and 20, the final
@@ -29,18 +35,27 @@ Phases, in order; any failure exits non-zero:
     just before and read just after;
  6. bf16-table path: the same fit with embed_table='bfloat16', 11
     iterations (one block, one eval), counted the same way;
- 7. search path: `run_search` at the default SearchConfig on the same
+ 7. remapping path: `run_remapping` on the synthetic remapping example
+    (the flagship image blurred inside an ellipse; its blur map on the
+    card) at the default RemappingConfig widths, 21 iterations with evals
+    at 10 and 20, the final LPIPS and the collapse guard, counted the same
+    way (K4's grouped style launch and its backward once per step);
+ 8. held-out path: the completion with comp_heldout=2 and
+    comp_snapshot='best', 11 iterations with milestones at 5 and 10;
+ 9. warp path: the completion with warp_field=True, 11 iterations: K1 on
+    the fly on warped coordinates (no table) and its backward every step;
+10. search path: `run_search` at the default SearchConfig on the same
     image without its lattices (detection with its FFT grid on the card,
     the 300-step lockstep fit of 9 candidates through K2 batched and one
     K4 launch each way per step, the LPIPS + CX eval), counted the same
     way; before it, in phase 3, detection with the grid on the card
     against the CPU (equal up to proven ties) and one lockstep step on the
     card against the CPU in full f32;
- 8. search-chained path: the completion fit of phase 5 for 11 iterations
+11. search-chained path: the completion fit of phase 5 for 11 iterations
     on the search's top-3 lattices (the patch size they give), counted the
     same way;
- 9. one JSON line of kernels (with the search path's K2 and K4 shapes),
-    the search's phase walls and the chained fit's metrics, the
+12. one JSON line of kernels (with the search's, the remapping's and the
+    warp's shapes and launches), the paths' walls and metrics, the
     nvidia-smi line, and the final {"ok": true, "device": {...}} line.
 """
 import concurrent.futures
@@ -477,56 +492,210 @@ def k4_bwd_entry(gen, m, c, alphas):
                     plain_bwd, (2 * m * c + m + 5 * c) * 4, 60 * m * c)
 
 
-def check_fit_step():
-    """One fit step with every loss on, the same parameters and injected
-    batch on the card (kernels) and on the CPU (plain versions): loss and
-    gradients agree. Small widths; matmul_precision='float32', so full f32
-    on both sides (TF32 would break the tolerances below)."""
+# the main path's step rows (N_rand + 2 fake 160^2 patches): K1's backward
+# runs at this shape on every step of the warp path
+K1_BWD_ROWS = 8192 + 2 * 160 * 160
+
+
+def check_k1_bwd(gen):
+    """K1's backward at (59,392, 1,386): the coordinate gradient at
+    non-integer coordinates of the canvas, against autograd through the
+    plain version in f32 and float64 (judge())."""
     import torch
-    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.kernels import periodic_embed as pe
+    from npp_tpu_torch.utils.synthetic import H, W, synthetic_data
+    data = synthetic_data(0)
+    dev = torch.device('cuda')
+    n = K1_BWD_ROWS
+    coords = (torch.rand(n, 2, generator=gen) *
+              torch.tensor([H - 1.0, W - 1.0])).to(dev)
+    consts = (torch.tensor(data.selected_angles, device=dev).float(),
+              torch.tensor(data.selected_periods, device=dev).float(),
+              (torch.randn(10, generator=gen) * 10).to(dev))
+    cfg = ((1.0,), (0.0, -1.0, 1.0, 0.5, -0.5), (0.0,), (H, W))
+    g = torch.randn(n, 1386, generator=gen).to(dev)
+    grads = []
+    for fn, dt in ((pe.periodic_embed, torch.float32),
+                   (pe.periodic_embed_plain, torch.float32),
+                   (pe.periodic_embed_plain, torch.float64)):
+        c = coords.to(dt, copy=True).requires_grad_()
+        fn(c, *[t.to(dt) for t in consts], *cfg).backward(g.to(dt))
+        grads.append(c.grad)
+    torch.cuda.synchronize()
+    err = judge([grads])
+    del grads
+    args = pe._Args(coords, *consts, *cfg)
+
+    def plain():
+        c = coords.detach().requires_grad_()
+        return torch.autograd.grad(pe.periodic_embed_plain(c, *consts, *cfg),
+                                   c, g)
+    # the gradient read once, the coordinates read and their gradient
+    # written; a sincos and a few multiply-adds per gradient value
+    b_ms, b_by = bound_ms((n * 1386 + 4 * n) * 4, n * 1386 * 24)
+    return [dict(
+        name='periodic_embed_bwd', route='cuda',
+        source='npp_tpu_torch/csrc/periodic_embed.cu',
+        replaces='npp_tpu/nn/embedder.py:149 (TaskEmbedder.embed) '
+                 'differentiated in the coordinates by JAX (XLA-fused; the '
+                 'warp field, nn/warp.py; no pl.pallas_call in the repo)',
+        shape=[n, 1386], **err,
+        ms=time_ms(lambda: pe.periodic_embed_bwd_launch(g, coords, args)),
+        eager_ms=eager_ms(lambda: pe.periodic_embed_bwd_launch(g, coords,
+                                                               args)),
+        plain_ms=time_ms(plain, iters=5), bound_ms=b_ms, bound_us=1e3 * b_ms,
+        bound_by=b_by, library_ms=None)]
+
+
+# the remapping's adaptive style loss: the flattened Gram residuals of
+# pool1..pool3 over P*K = 6 patches, K4's wide rows; the forward is one
+# grouped launch for the three layers
+K4_STYLE = [(6, 64 * 64), (6, 128 * 128), (6, 256 * 256)]
+K4_WIDE_ALPHAS = (0.001, 1.0, 1.999)
+
+
+def check_k4_wide(gen):
+    """K4's wide rows at the style shapes: the grouped forward (judged per
+    segment, each also timed alone) and the backward per shape, at every
+    alpha of K4_WIDE_ALPHAS and spread, against the plain version in f32
+    and float64."""
+    from npp_tpu_torch.kernels import robust_rho as rr
+    err = None
+    for alpha in ('spread',) + K4_WIDE_ALPHAS:
+        segs = [k4_inputs(gen, m, c, alpha) for m, c in K4_STYLE]
+        got = rr.rho_fwd_group_launch(segs)
+        for r, seg in zip(got, segs):
+            e = judge([(r, rr.rho_rows_plain(*seg),
+                        rr.rho_rows_plain(*[t.double() for t in seg]))])
+            e['passed'] = e['passed'] and e['rel_err_vs_f64'] <= FWD_F64_BAR
+            err = e if err is None else merge(err, e)
+    segs = [k4_inputs(gen, m, c, 'spread') for m, c in K4_STYLE]
+    singles = []
+    for (m, c), seg in zip(K4_STYLE, segs):
+        b_ms, _ = bound_ms(*fwd_bytes_ops(m, c))
+        singles.append(dict(
+            shape=[m, c], ms=time_ms(lambda: rr.rho_fwd_launch(*seg)),
+            eager_ms=eager_ms(lambda: rr.rho_fwd_launch(*seg)),
+            bound_ms=b_ms))
+    n_bytes, ops = (sum(v) for v in zip(*[fwd_bytes_ops(m, c)
+                                          for m, c in K4_STYLE]))
+    shapes = ','.join(f'{m}x{c}' for m, c in K4_STYLE)
+    out = [k4_entry(f'robust_rho_fwd_group[{shapes}]', FWD_SRC,
+                    [list(sh) for sh in K4_STYLE], err,
+                    lambda: rr.rho_fwd_group_launch(segs),
+                    lambda: rr.rho_rows_group_plain(*zip(*segs)), n_bytes,
+                    ops, segments=singles)]
+    for m, c in K4_STYLE:
+        out.append(k4_bwd_entry(gen, m, c, ('spread',) + K4_WIDE_ALPHAS))
+    return out
+
+
+def draw_batch(gen, sampler, p, s, k, ratio, want, tries=500):
+    """The first of `tries` sampled batches that `want` accepts."""
+    from npp_tpu_torch.models.sampler import sample_patches
+    for _ in range(tries):
+        batch = sample_patches(gen, sampler, p, s, k, ratio)
+        if want(batch):
+            return batch
+    fail(f'no batch of {tries} draws has the wanted patches')
+
+
+def check_step(label, cfg, data, task=None, want=lambda batch: True):
+    """One fit step of `task` (completion by default) with the same
+    parameters and injected batch on the card (kernels) and on the CPU
+    (plain versions): loss and every gradient agree. `want(batch)` picks
+    the batch (drawn on the CPU, seed 3). Small widths;
+    matmul_precision='float32', so full f32 on both sides (TF32 would
+    break the tolerances below)."""
+    import torch
     from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
-    from npp_tpu_torch.models.sampler import SOURCE_SAME, sample_patches
-    from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
+    from npp_tpu_torch.models.trainer import (COMPLETION_TASK, build_loss_fn,
+                                              init_fit_state)
+    task = task or COMPLETION_TASK
+    p, s, k = cfg.patch_num, data.patch_size, cfg.num_real_patch_per_sample
+    cpu = torch.device('cpu')
+    gen = torch.Generator().manual_seed(3)
+    consts = make_fit_consts(cfg, data, s, cpu, task)
+    batch = draw_batch(gen, consts.sampler, p, s, k, 0.3, want)
+    pix = torch.randint(0, consts.pool_train_n, (cfg.N_rand,), generator=gen)
+    res = {}
+    for name in ('cpu', 'cuda'):
+        dev = torch.device(name)
+        # the same init on both devices (drawn on the CPU from cfg.seed)
+        comps = build_components(cfg, data, dev, task)
+        st = init_fit_state(cfg, comps.model, comps.percep, dev, comps.style)
+        off = torch.Generator().manual_seed(4)
+        with torch.no_grad():   # the latents and the warp's output layer
+            for k_, v in st.params.named_parameters():   # off their init
+                if 'latent' in k_ or k_.startswith('warp.out'):
+                    v.copy_(0.3 * torch.randn(v.shape, generator=off))
+        inj = (pix, type(batch)(*[t.to(dev) if torch.is_tensor(t) else t
+                                  for t in vars(batch).values()]))
+        loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, p, s,
+                                inject=inj, style=comps.style, task=task)
+        with matmul_precision(cfg.matmul_precision):
+            loss, _ = loss_fn(st.params, comps.embedder,
+                              make_fit_consts(cfg, data, s, dev, task), None)
+            loss.backward()
+        res[name] = (loss.detach().cpu(),
+                     {k_: q.grad.cpu() for k_, q in
+                      st.params.named_parameters() if q.grad is not None})
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+    l_err = rel(res['cuda'][0], res['cpu'][0])
+    g_err = {k_: rel(res['cuda'][1][k_], v) for k_, v in res['cpu'][1].items()}
+    worst = max(g_err, key=g_err.get)
+    log(f'{label} card vs CPU: loss {float(res["cuda"][0]):.6f} vs '
+        f'{float(res["cpu"][0]):.6f} (rel {l_err:.2e}), worst gradient rel '
+        f'err {g_err[worst]:.2e} ({worst}) over {len(g_err)} tensors')
+    # f32 on both sides; convolutions and reductions reassociate
+    if not (l_err < 1e-4 and g_err[worst] < 1e-2 and
+            set(res['cuda'][1]) == set(res['cpu'][1])):
+        fail(f'{label} on the card disagrees with the CPU')
+    return dict(loss_rel_err=l_err, worst_grad_rel_err=g_err[worst],
+                worst_grad=worst, tensors=len(g_err))
+
+
+def check_fit_step():
+    """One completion step with every loss on (a 'same' batch, so the
+    LPIPS-robust term is on), and one with the warp field (K1's backward),
+    card against CPU."""
+    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.models.sampler import SOURCE_SAME
     from npp_tpu_torch.utils.synthetic import synthetic_data
     cfg = replace(CompletionConfig(), netwidth=64, netdepth=6, N_rand=512,
                   patch_num=1, num_real_patch_per_sample=2,
                   matmul_precision='float32')
     data = synthetic_data(0, 96, 128)
     data.patch_size = 32
-    res = {}
-    gen = torch.Generator().manual_seed(3)
-    while True:     # a 'same' step, so the LPIPS-robust term is on
-        batch = sample_patches(gen, make_fit_consts(
-            cfg, data, 32, torch.device('cpu')).sampler, 1, 32, 2, 0.3)
-        if batch.source == SOURCE_SAME:
-            break
-    pix = torch.randint(0, 1000, (cfg.N_rand,), generator=gen)
-    for name in ('cpu', 'cuda'):
-        dev = torch.device(name)
-        comps = build_components(cfg, data, dev)
-        state = init_fit_state(cfg, comps.model, comps.percep, dev)
-        inj = (pix, type(batch)(*[t.to(dev) if torch.is_tensor(t) else t
-                                  for t in vars(batch).values()]))
-        loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, 1, 32,
-                                inject=inj)
-        with matmul_precision(cfg.matmul_precision):
-            loss, _ = loss_fn(state.params, comps.embedder,
-                              make_fit_consts(cfg, data, 32, dev), None)
-            loss.backward()
-        res[name] = (loss.detach().cpu(),
-                     {k: p.grad.cpu() for k, p in
-                      state.params.named_parameters() if p.grad is not None})
-    def rel(a, b):
-        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-    l_err = rel(res['cuda'][0], res['cpu'][0])
-    g_err = max(rel(res['cuda'][1][k], v) for k, v in res['cpu'][1].items())
-    log(f'fit step card vs CPU: loss {float(res["cuda"][0]):.6f} vs '
-        f'{float(res["cpu"][0]):.6f} (rel {l_err:.2e}), worst gradient rel '
-        f'err {g_err:.2e} over {len(res["cpu"][1])} tensors')
-    # f32 on both sides; convolutions and reductions reassociate
-    if not (l_err < 1e-4 and g_err < 1e-2):
-        fail('fit step on the card disagrees with the CPU')
+    return {'completion': check_step(
+                'fit step', cfg, data,
+                want=lambda b: b.source == SOURCE_SAME),
+            'warp': check_step('warp fit step', replace(cfg, warp_field=True),
+                               data)}
+
+
+def check_remap_step():
+    """One remapping step (pixel loss weighted by the clear mask, CX, the
+    adaptive style loss through K4's wide rows) on a batch with both real
+    patches valid, card against CPU, the style latents' gradients
+    included."""
+    import torch
+    from npp_tpu_torch.config import RemappingConfig, replace
+    from npp_tpu_torch.models.loaders import remapping_data
+    from npp_tpu_torch.models.remapping import REMAPPING_TASK
+    from npp_tpu_torch.utils.synthetic import synthetic_remap_data
+    cfg = replace(RemappingConfig(), netwidth=64, netdepth=6, N_rand=512,
+                  patch_num=1, num_real_patch_per_sample=2,
+                  matmul_precision='float32')
+    # 96x128, its clear mask from the blur map on the CPU, patch size 32
+    data = remapping_data(synthetic_remap_data(0, 96, 128), cfg,
+                          torch.device('cpu'))
+    data.patch_size = 32
+    return check_step('remapping step', cfg, data, REMAPPING_TASK,
+                      want=lambda b: float(b.valid.sum()) == 2)
 
 
 TF32_COSINE_BAR = 0.99
@@ -607,6 +776,7 @@ def check_tf32_gradients():
         grads.setdefault('mlp_step', []).append(torch.cat(
             [q.grad.flatten() for q in state.params.mlp.parameters()]))
     res = {name: cosine(*g) for name, g in grads.items()}
+    res.update(tf32_style_cosines())
     log(f'TF32 on ({cfg.matmul_precision!r}) against off (\'float32\'), '
         f'flagship patch scale: gradient cosines {res}')
     low = [n for n, v in res.items() if not v >= TF32_COSINE_BAR]
@@ -616,20 +786,181 @@ def check_tf32_gradients():
     return res
 
 
-def drive(label, must_launch, data=None, **overrides):
+def remap_data_full():
+    """The flagship remapping example (utils/synthetic.py::
+    synthetic_remap_data, 384x512) as the loader makes it, its blur map on
+    the card."""
+    import torch
+    from npp_tpu_torch.config import RemappingConfig
+    from npp_tpu_torch.models.loaders import remapping_data
+    from npp_tpu_torch.utils.synthetic import synthetic_remap_data
+    return remapping_data(synthetic_remap_data(0), RemappingConfig(),
+                          torch.device('cuda'))
+
+
+def tf32_style_cosines():
+    """The remapping's TF32 gradients against full f32 on the flagship
+    remapping example at the default RemappingConfig (patch 64, 2 fake
+    patches with K=3 real ones each, a batch with every real patch valid):
+    the adaptive style term's gradient in the predicted patches (the
+    known-pixel paste plus N(0, 0.05^2) noise, as for CX), and one whole
+    remapping step's gradient in the MLP's parameters."""
+    import torch
+    from npp_tpu_torch.config import RemappingConfig
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
+    from npp_tpu_torch.models.remapping import REMAPPING_TASK
+    from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
+    cfg = RemappingConfig()
+    task = REMAPPING_TASK
+    data = remap_data_full()
+    dev = torch.device('cuda')
+    comps = build_components(cfg, data, dev, task)
+    state = init_fit_state(cfg, comps.model, comps.percep, dev, comps.style)
+    p, s, k = cfg.patch_num, data.patch_size, cfg.num_real_patch_per_sample
+    consts = make_fit_consts(cfg, data, s, dev, task)
+    gen = torch.Generator().manual_seed(6)
+    batch = draw_batch(gen, consts.sampler, p, s, k, cfg.invalid_ratio,
+                       lambda b: float(b.valid.sum()) == p * k)
+    pk = p * k
+    real_rgb = batch.real_rgb.reshape(pk, s, s, 3)
+    real_mask = batch.real_mask.reshape(pk, s, s, 1)
+    fake_mask = batch.fake_mask.reshape(p, s, s, 1)
+    fake_rgb = batch.fake_rgb.reshape(p, s, s, 3)
+    noise = (0.05 * torch.randn(p, s, s, 3, generator=gen)).to(dev)
+    pred0 = torch.clamp(fake_rgb * fake_mask + 0.5 * (1.0 - fake_mask) +
+                        noise, 0.0, 1.0)
+    pix = torch.randint(0, consts.pool_train_n, (cfg.N_rand,), generator=gen)
+    loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, p, s,
+                            inject=(pix, batch), style=comps.style, task=task)
+    grads = {}
+    for prec in (cfg.matmul_precision, 'float32'):
+        with matmul_precision(prec):
+            pred = pred0.clone().requires_grad_()
+            term = comps.style(
+                pred[:, None].expand(p, k, s, s, 3).reshape(pk, s, s, 3) *
+                real_mask, real_rgb * real_mask,
+                adaptive=state.params.adaptive_style,
+                valid=batch.valid.reshape(pk))
+            grads.setdefault('style', []).append(
+                torch.autograd.grad(term, pred)[0])
+            state.params.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(state.params, comps.embedder, consts, None)
+            loss.backward()
+        grads.setdefault('remap_mlp_step', []).append(torch.cat(
+            [q.grad.flatten() for q in state.params.mlp.parameters()]))
+    return {name: cosine(*g) for name, g in grads.items()}
+
+
+def check_blur_map():
+    """The blur map of the flagship remapping example with its windows'
+    eigenvalues on the card and on the CPU: the normalised degree maps'
+    largest difference and the clear masks' agreement (the f32 eigenvalues
+    of the near-singular Grams differ between solvers by about 5e-3 of the
+    degree range; tests/test_torch_remap.py), and the card's time."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.ops import blur
+    from npp_tpu_torch.utils.synthetic import synthetic_remap_data
+    img = np.uint8(synthetic_remap_data(0)['gt_img'] * 255)
+    maps = {}
+    for name in ('cuda', 'cpu'):
+        blur.degree_map(img, device=torch.device(name))   # warm
+        t0 = time.time()
+        maps[name] = blur.blur_map(img, device=torch.device(name))
+        maps[name + '_s'] = time.time() - t0
+    diff = float(np.abs(maps['cuda'][0] - maps['cpu'][0]).max())
+    agree = float((maps['cuda'][1] == maps['cpu'][1]).mean())
+    clear = float((maps['cuda'][1] > 0).mean())
+    log(f"blur map 384x512, card vs CPU: degree max diff {diff:.2e}, clear "
+        f"masks agree on {agree:.6f} of pixels, clear share {clear:.4f}; "
+        f"{maps['cuda_s']:.3f} s on the card ({maps['cpu_s']:.3f} s CPU)")
+    if not (diff < 2e-2 and agree >= 0.999 and 0.0 < clear < 1.0):
+        fail('blur map on the card disagrees with the CPU')
+    return dict(degree_max_diff=diff, mask_agreement=agree,
+                clear_share=clear, card_s=maps['cuda_s'],
+                cpu_s=maps['cpu_s'])
+
+
+def drive_remap():
+    """run_remapping on the flagship remapping example at the default
+    RemappingConfig widths, 21 iterations (evals at 10 and 20, the final
+    render, LPIPS and guard), every launch count set to 0 just before and
+    read just after. Fails on non-finite losses or metrics, a style term
+    that stays 0, or a kernel of the path that never launched: K1, K2, and
+    K4 forward (the grouped style launch) and backward at every style
+    shape, once per step."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import RemappingConfig, replace
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.models.remapping import run_remapping
+    from npp_tpu_torch.utils.synthetic import synthetic_remap_data
+    cfg = replace(RemappingConfig(), N_iters=21, i_testset=10, i_print=10)
+    arrays = synthetic_remap_data(0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    result, final, evals = run_remapping(cfg, save=False, device='cuda',
+                                         data=arrays)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for h in result.history:
+        log(f"remapping path: block ending at iter {h['iter']}: loss "
+            f"{h['loss']:.6g} (style {h['style']:.6g}), "
+            f"{h['ms_per_step']:.2f} ms/step")
+    for i, e in sorted(evals.items()):
+        log(f"remapping path: eval@{i}: train_psnr {e['train_psnr']:.3f} "
+            f"val_psnr {e['val_psnr']:.3f}")
+    log(f"remapping path: final: train_psnr {final['train_psnr']:.3f} "
+        f"val_psnr {final['val_psnr']:.3f} full_lpips "
+        f"{final['full_lpips']:.5f} clear_lpips {final['clear_lpips']:.5f}")
+    log(f'remapping path: {wall:.1f} s wall; peak memory allocated '
+        f'{peak / 2**30:.2f} GiB; launches {launches}')
+    numbers = [h[k] for h in result.history for k in ('loss', 'style')] + \
+        [final[k] for k in ('train_psnr', 'val_psnr', 'full_lpips',
+                            'clear_lpips')]
+    if not np.all(np.isfinite(numbers)) or \
+            not any(h['style'] > 0 for h in result.history):
+        fail(f'remapping path: non-finite or missing style/metrics: {numbers}')
+    if sorted(evals) != [10, 20]:
+        fail(f'remapping path: evals at {sorted(evals)}')
+    steps = cfg.N_iters - 1
+    shapes = ','.join(f'{m}x{c}' for m, c in K4_STYLE)
+    want = {f'robust_rho_fwd_group[{shapes}]': steps,
+            **{f'robust_rho_bwd[{m}x{c}]': steps for m, c in K4_STYLE}}
+    wrong = {k: launches.get(k, 0) for k, v in want.items()
+             if launches.get(k, 0) != v}
+    missing = [k for k in ('periodic_embed', 'bias_snake_fwd',
+                           'bias_snake_bwd') if launches.get(k, 0) <= 0]
+    if wrong or missing:
+        fail(f'remapping path: launch counts {wrong}, expected {want}; '
+             f'never launched: {missing}')
+    return launches, dict(
+        ms_per_step=[h['ms_per_step'] for h in result.history],
+        train_psnr=final['train_psnr'], val_psnr=final['val_psnr'],
+        full_lpips=final['full_lpips'], clear_lpips=final['clear_lpips'],
+        evals=evals, wall_s=wall, peak_bytes=peak)
+
+
+def drive(label, must_launch, data=None, every=10, **overrides):
     """run_completion on the 384x512 synthetic example (or `data`, the same
     image with other lattices) at the default CompletionConfig widths with
-    `overrides`, every launch count set to 0 just before and read just
-    after. Fails on non-finite losses or metrics, a wrong composite,
-    missing evals, or a kernel of `must_launch` (a name of launch_counts(),
-    with or without its shape) that never launched."""
+    `overrides` and evals and logs every `every` steps, every launch count
+    set to 0 just before and read just after. Fails on non-finite losses or
+    metrics, a wrong composite, missing evals, or a kernel of `must_launch`
+    (a name of launch_counts(), with or without its shape) that never
+    launched."""
     import numpy as np
     import torch
     from npp_tpu_torch.config import CompletionConfig, replace
     from npp_tpu_torch.kernels import launch_counts, reset_launches
     from npp_tpu_torch.models.completion import run_completion
     from npp_tpu_torch.utils.synthetic import H, W, synthetic_data
-    cfg = replace(CompletionConfig(), i_testset=10, i_print=10, **overrides)
+    cfg = replace(CompletionConfig(), i_testset=every, i_print=every,
+                  **overrides)
     data = synthetic_data(0) if data is None else data
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -658,8 +989,8 @@ def drive(label, must_launch, data=None, **overrides):
     comp = final['pred_rgb_img_comp']
     if comp.shape != (H, W, 3) or not np.all(np.isfinite(comp)):
         fail(f'{label}: composite of shape {comp.shape} or not finite')
-    blocks = (cfg.N_iters - 1) // 10
-    if sorted(evals) != [10 * (i + 1) for i in range(blocks)] or \
+    blocks = (cfg.N_iters - 1) // every
+    if sorted(evals) != [every * (i + 1) for i in range(blocks)] or \
             len(result.history) != blocks:
         fail(f'{label}: evals at {sorted(evals)}, {len(result.history)} '
              'logged blocks')
@@ -869,6 +1200,45 @@ def chained_data(odgt):
     return data
 
 
+def drive_heldout():
+    """The completion with comp_heldout=2 and comp_snapshot='best', 11
+    steps with milestones at 5 and 10: every eval and the final carry
+    heldout_psnr, and the snapshot is a milestone."""
+    _, history, _, final = drive(
+        'held-out path', ['periodic_embed', 'bias_snake_fwd',
+                          'bias_snake_bwd', 'robust_rho_fwd',
+                          'robust_rho_bwd'],
+        N_iters=11, every=5, comp_heldout=2, comp_snapshot='best')
+    log(f"held-out path: heldout_psnr {final.get('heldout_psnr')} at "
+        f"snapshot_iter {final['snapshot_iter']}")
+    if final['snapshot_iter'] not in (5, 10) or \
+            not final.get('heldout_psnr', float('nan')) > 0:
+        fail('held-out path: no held-out PSNR or no milestone snapshot')
+    return dict(ms_per_step=[h['ms_per_step'] for h in history],
+                heldout_psnr=final['heldout_psnr'],
+                snapshot_iter=final['snapshot_iter'],
+                train_psnr=final['train_psnr'], val_psnr=final['val_psnr'])
+
+
+def drive_warp():
+    """The completion with warp_field=True, 11 steps (one block of 10): K1
+    embeds the warped coordinates on the fly (no table: at least one
+    forward launch a step) and its backward runs once a step."""
+    launches, history, _, final = drive(
+        'warp path', ['periodic_embed', 'periodic_embed_bwd',
+                      'bias_snake_fwd', 'bias_snake_bwd', 'robust_rho_fwd',
+                      'robust_rho_bwd'], N_iters=11, warp_field=True)
+    steps = 10
+    if launches['periodic_embed'] < steps or \
+            launches['periodic_embed_bwd'] != steps:
+        fail(f"warp path: K1 launched {launches['periodic_embed']} times "
+             f"forward and {launches['periodic_embed_bwd']} backward in "
+             f"{steps} steps")
+    return launches, dict(ms_per_step=[h['ms_per_step'] for h in history],
+                          train_psnr=final['train_psnr'],
+                          val_psnr=final['val_psnr'])
+
+
 def main():
     name, smi = phase_device()
     import torch
@@ -879,7 +1249,8 @@ def main():
         log('kernel checks and the fit steps: TF32 off '
             '(torch.backends.cuda.matmul.allow_tf32 = False, '
             'torch.backends.cudnn.allow_tf32 = False)')
-        kernels = check_k1(gen) + check_k2(gen) + check_k4(gen)
+        kernels = check_k1(gen) + check_k1_bwd(gen) + check_k2(gen) + \
+            check_k4(gen) + check_k4_wide(gen)
         for k in kernels:
             err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
                    f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
@@ -897,22 +1268,31 @@ def main():
         bad = [k['name'] for k in kernels if not k['passed']]
         if bad:
             fail(f'kernels disagree with their plain versions: {bad}')
-        check_fit_step()
+        steps = dict(check_fit_step(), remapping=check_remap_step())
+        blur = check_blur_map()
         det, i_train, img = check_search_detection()
         check_search_step(det, i_train, img)
     cosines = check_tf32_gradients()
     bf16_name = 'periodic_embed_bf16'
     on_search = set(search_names())
+    on_remap = {k['name'] for k in kernels if '[6x' in k['name']}
+    on_warp = {'periodic_embed_bwd'}
     log("main path and bf16-table path: matmul_precision='bfloat16' (the "
         "default), TF32 on in the steps and the render")
     main_launches, history, peak, _ = drive(
         'main path', [k['name'] for k in kernels
-                      if k['name'] != bf16_name and k['name'] not in on_search],
+                      if k['name'] != bf16_name and k['name'] not in
+                      on_search | on_remap | on_warp],
         N_iters=21)
     bf16_launches, bf16_history, _, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
                             'robust_rho_fwd', 'robust_rho_bwd'],
         N_iters=11, embed_table='bfloat16')
+    log("remapping, held-out and warp paths: the default RemappingConfig / "
+        "CompletionConfig widths, TF32 in the steps and the render")
+    remap_launches, remap = drive_remap()
+    heldout = drive_heldout()
+    warp_launches, warp = drive_warp()
     log("search path: the default SearchConfig (matmul_precision="
         "'bfloat16': TF32 in the fit; the eval in full f32)")
     odgt, stats, search_launches, search_peak = drive_search()
@@ -928,6 +1308,8 @@ def main():
     for k in kernels:
         k['launches'] = (bf16_launches if k['name'] == bf16_name else
                          search_launches if k['name'] in on_search else
+                         remap_launches if k['name'] in on_remap else
+                         warp_launches if k['name'] in on_warp else
                          main_launches).get(k['name'], 0)
     search = {k: v for k, v in stats.items() if k != 'fit_losses'}
     search.update(peak_bytes=search_peak,
@@ -943,6 +1325,8 @@ def main():
                               'bf16_table_ms_per_step': [
                                   h['ms_per_step'] for h in bf16_history],
                               'peak_bytes': peak},
+                      'remap': remap, 'heldout': heldout, 'warp': warp,
+                      'blur_map': blur, 'steps_card_vs_cpu': steps,
                       'search': search,
                       'search_chained': {
                           'patch_size': chained.patch_size,

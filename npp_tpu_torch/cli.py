@@ -3,14 +3,16 @@
 Usage:
   python -m npp_tpu_torch.cli search --datadir D --outdir O [--device cpu] [overrides]
   python -m npp_tpu_torch.cli complete --datadir D --basedir B [--device cpu] [overrides]
+  python -m npp_tpu_torch.cli remap --datadir D --basedir B [--device cpu] [overrides]
 
 `search` reads D's masked_img.png, gt_img.png, unknown_mask.png and
 valid_mask.png and writes O/<name>/config.odgt and its PNGs, which
-`complete --datadir O/<name>` reads. Any SearchConfig / CompletionConfig
-field can be overridden with --<field> <value>; booleans accept
-true/false. Runs on the card unless --device cpu is given. Reading and
-writing PNGs needs OpenCV. The segment and remap commands are not ported
-yet (ROADMAP.md).
+`complete --datadir O/<name>` reads; `remap` reads a record and its
+gt_img and valid_mask the same way. Any SearchConfig / CompletionConfig /
+RemappingConfig field can be overridden with --<field> <value>; booleans
+accept true/false. Runs on the card unless --device cpu is given. Reading
+and writing PNGs needs OpenCV. The segment command is not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import dataclasses
 import sys
 from typing import Type
 
-from .config import CompletionConfig, SearchConfig
+from .config import CompletionConfig, RemappingConfig, SearchConfig
 
 
 def _parse_value(field: dataclasses.Field, raw: str):
@@ -69,12 +71,17 @@ def main(argv=None):
         _, final, _ = run_completion(build_config(CompletionConfig, rest),
                                      device=device)
         print({k: v for k, v in final.items() if not hasattr(v, 'shape')})
+    elif cmd == 'remap':
+        from .models.remapping import run_remapping
+        _, final, _ = run_remapping(build_config(RemappingConfig, rest),
+                                    device=device)
+        print({k: v for k, v in final.items() if not hasattr(v, 'shape')})
     elif cmd == 'search':
         from .proposal.search import run_search
         odgt = run_search(build_config(SearchConfig, rest), device=device)
         print({k: odgt[k] for k in ('selected_angles', 'selected_periods',
                                     'distances')})
-    elif cmd in ('segment', 'remap'):
+    elif cmd == 'segment':
         raise NotImplementedError(
             f'{cmd} is not ported to npp_tpu_torch yet (see ROADMAP.md)')
     else:

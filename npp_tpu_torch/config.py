@@ -86,8 +86,9 @@ class FitConfig(BaseConfig):
     aux_gate_ratio: float = 0.0         # drop aux proposals ranked worse than
                                         # ratio x top-1 distance (0 = off)
 
-    # Outside the port's first slice: each raises NotImplementedError when
-    # set away from its default (see ROADMAP.md).
+    # The warp field (nn/warp.py) and the held-out blocks with their
+    # snapshot policy (models/heldout.py) are ported; comp_seam='residual'
+    # (it needs cv2.inpaint) raises NotImplementedError (see ROADMAP.md).
     warp_field: bool = False
     warp_width: int = 32
     warp_depth: int = 2
@@ -181,8 +182,8 @@ class SegmentationConfig(FitConfig):
 
 @dataclass(frozen=True)
 class RemappingConfig(FitConfig):
-    """reference: options/arg_config.py:231-300. Parsed only; remapping is
-    not ported yet."""
+    """reference: options/arg_config.py:231-300, run by
+    models/remapping.py::run_remapping."""
 
     remap_guard: bool = True
     remap_guard_db: float = 10.0

@@ -37,6 +37,23 @@
 // the same bits as sinf and cosf on an H100 (scripts/check_k1_sincos.py).
 // bf16 goes through __float2bfloat16_rn (round to nearest even, as
 // astype(jnp.bfloat16)).
+//
+// K1 backward (`npp_periodic_embed_bwd`): with the warp field on
+// (npp_tpu/nn/warp.py) the coordinates are learned, and JAX's autodiff
+// carries the gradient through the embedding into them. Per row,
+//   dL/d(y, x) = sum over proposals and periodic channels of
+//                dL/dp * dp/d(y, x),
+//   dL/dp = g[p] + sum_b band_b (g[sin b] cos(band_b p) - g[cos b] sin(band_b p)),
+// with dp/dx = 2/w (normalised x), dp/dy = 2/h (normalised y), and for a
+// phase channel p = sin or cos of phase = 2 pi mod(proj, f)/f,
+// proj = y cos(th) + x sin(th): dp/dproj = +-(cos or sin)(phase) 2 pi/f
+// (the modulo's derivative is 1, as jnp.mod's). The phases are recomputed
+// in f32 as the forward computes them. Bound: memory, the (N, K*D) f32
+// gradient read once (329 MB for 59,392 rows of 1,386). One thread per
+// (row, proposal, periodic channel) item, as the forward, reads its 2F + 1
+// gradient values (neighbouring threads, neighbouring channels); the items'
+// products go to shared memory and one thread per row sums them in channel
+// order: no atomics, the same bits on every run.
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -65,29 +82,14 @@ __device__ __forceinline__ __nv_bfloat16 to_out(float v, __nv_bfloat16) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-periodic_embed_kernel(const float* __restrict__ coords,
-                      const float* __restrict__ angles,
-                      const float* __restrict__ periods,
-                      const float* __restrict__ bands, int n_bands,
-                      const float* __restrict__ scales, int n_scales,
-                      const float* __restrict__ offsets, int n_offsets,
-                      const float* __restrict__ angle_offsets,
-                      int n_angle_offsets, long long n, int k, float h,
-                      float w, int tile_rows, T* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int half = 1 + n_scales * n_offsets * n_angle_offsets * 2;
-  const int P = 2 * half;
-  const int D = P * (1 + 2 * n_bands);
-  const int KP = k * P;
-  const int KD = k * D;
-  // shared memory: [tile of tile_rows * KD values][K*P channels][bands]
-  T* tile = reinterpret_cast<T*>(smem);
-  Channel* chan = reinterpret_cast<Channel*>(
-      smem + ((tile_rows * KD * (int)sizeof(T) + 15) & ~15));
-  float* band = reinterpret_cast<float*>(chan + KP);
-
+// Fills the K*P channel table and the bands in shared memory.
+__device__ __forceinline__ void fill_channels(
+    Channel* chan, float* band, const float* __restrict__ angles,
+    const float* __restrict__ periods, const float* __restrict__ bands,
+    int n_bands, const float* __restrict__ scales,
+    const float* __restrict__ offsets, int n_offsets,
+    const float* __restrict__ angle_offsets, int n_angle_offsets, int half,
+    int P, int D, int KP) {
   for (int i = threadIdx.x; i < KP; i += blockDim.x) {
     const int kk = i / P;
     const int c = i - kk * P;
@@ -114,6 +116,42 @@ periodic_embed_kernel(const float* __restrict__ coords,
     chan[i] = ch;
   }
   for (int b = threadIdx.x; b < n_bands; b += blockDim.x) band[b] = bands[b];
+}
+
+// The periodic channel's phase, floored modulo as jnp.mod.
+__device__ __forceinline__ float phase_of(const Channel& ch, float y,
+                                          float x) {
+  const float proj = __fadd_rn(__fmul_rn(y, ch.cth), __fmul_rn(x, ch.sth));
+  const float m = __fsub_rn(proj,
+                            __fmul_rn(ch.f, floorf(__fdiv_rn(proj, ch.f))));
+  return __fmul_rn(__fdiv_rn(m, ch.f), kTwoPi);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+periodic_embed_kernel(const float* __restrict__ coords,
+                      const float* __restrict__ angles,
+                      const float* __restrict__ periods,
+                      const float* __restrict__ bands, int n_bands,
+                      const float* __restrict__ scales, int n_scales,
+                      const float* __restrict__ offsets, int n_offsets,
+                      const float* __restrict__ angle_offsets,
+                      int n_angle_offsets, long long n, int k, float h,
+                      float w, int tile_rows, T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int half = 1 + n_scales * n_offsets * n_angle_offsets * 2;
+  const int P = 2 * half;
+  const int D = P * (1 + 2 * n_bands);
+  const int KP = k * P;
+  const int KD = k * D;
+  // shared memory: [tile of tile_rows * KD values][K*P channels][bands]
+  T* tile = reinterpret_cast<T*>(smem);
+  Channel* chan = reinterpret_cast<Channel*>(
+      smem + ((tile_rows * KD * (int)sizeof(T) + 15) & ~15));
+  float* band = reinterpret_cast<float*>(chan + KP);
+
+  fill_channels(chan, band, angles, periods, bands, n_bands, scales, offsets,
+                n_offsets, angle_offsets, n_angle_offsets, half, P, D, KP);
   __syncthreads();
 
   const long long row0 = (long long)blockIdx.x * tile_rows;
@@ -129,10 +167,7 @@ periodic_embed_kernel(const float* __restrict__ coords,
           ? __fmul_rn(__fsub_rn(__fdiv_rn(x, w), 0.5f), 2.0f)
           : __fmul_rn(__fsub_rn(__fdiv_rn(y, h), 0.5f), 2.0f);
     } else {
-      const float proj = __fadd_rn(__fmul_rn(y, ch.cth), __fmul_rn(x, ch.sth));
-      const float m = __fsub_rn(proj,
-                                __fmul_rn(ch.f, floorf(__fdiv_rn(proj, ch.f))));
-      const float phase = __fmul_rn(__fdiv_rn(m, ch.f), kTwoPi);
+      const float phase = phase_of(ch, y, x);
       p = (ch.code & 2) == 0 ? sinf(phase) : cosf(phase);
     }
     T* o = tile + r * KD + (ch.code >> 3);
@@ -197,7 +232,113 @@ int launch(const float* coords, const float* angles, const float* periods,
   return (int)cudaGetLastError();
 }
 
+// K1 backward: dcoords (n, 2) = dL/d(y, x) from grad (n, K*D) f32. A block
+// takes tile_rows rows; shared memory holds the channel table, the bands
+// and each item's (dL/dy, dL/dx) terms.
+__global__ void __launch_bounds__(kMaxThreads)
+periodic_embed_bwd_kernel(const float* __restrict__ grad,
+                          const float* __restrict__ coords,
+                          const float* __restrict__ angles,
+                          const float* __restrict__ periods,
+                          const float* __restrict__ bands, int n_bands,
+                          const float* __restrict__ scales, int n_scales,
+                          const float* __restrict__ offsets, int n_offsets,
+                          const float* __restrict__ angle_offsets,
+                          int n_angle_offsets, long long n, int k, float h,
+                          float w, int tile_rows,
+                          float* __restrict__ dcoords) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int half = 1 + n_scales * n_offsets * n_angle_offsets * 2;
+  const int P = 2 * half;
+  const int D = P * (1 + 2 * n_bands);
+  const int KP = k * P;
+  const int KD = k * D;
+  // shared memory: [K*P channels][bands][tile_rows * KP * 2 terms]
+  Channel* chan = reinterpret_cast<Channel*>(smem);
+  float* band = reinterpret_cast<float*>(chan + KP);
+  float* terms = band + n_bands;
+  fill_channels(chan, band, angles, periods, bands, n_bands, scales, offsets,
+                n_offsets, angle_offsets, n_angle_offsets, half, P, D, KP);
+  __syncthreads();
+
+  const long long row0 = (long long)blockIdx.x * tile_rows;
+  const int rows = (int)min((long long)tile_rows, n - row0);
+  const float dnx = __fdiv_rn(2.0f, w), dny = __fdiv_rn(2.0f, h);
+  for (int it = threadIdx.x; it < rows * KP; it += blockDim.x) {
+    const int r = it / KP;
+    const Channel ch = chan[it - r * KP];
+    const float y = coords[2 * (row0 + r)];
+    const float x = coords[2 * (row0 + r) + 1];
+    float p, dpdy, dpdx;
+    if (ch.code & 4) {
+      const bool is_x = (ch.code & 1) == 0;
+      p = is_x ? __fmul_rn(__fsub_rn(__fdiv_rn(x, w), 0.5f), 2.0f)
+               : __fmul_rn(__fsub_rn(__fdiv_rn(y, h), 0.5f), 2.0f);
+      dpdy = is_x ? 0.0f : dny;
+      dpdx = is_x ? dnx : 0.0f;
+    } else {
+      float sp, cp;
+      sincosf(phase_of(ch, y, x), &sp, &cp);
+      const bool is_sin = (ch.code & 2) == 0;
+      p = is_sin ? sp : cp;
+      const float dproj = (is_sin ? cp : -sp) * __fdiv_rn(kTwoPi, ch.f);
+      dpdy = dproj * ch.cth;
+      dpdx = dproj * ch.sth;
+    }
+    const float* g = grad + (row0 + r) * KD + (ch.code >> 3);
+    float dp = g[0];
+    for (int b = 0; b < n_bands; ++b) {
+      float sb, cb;
+      sincosf(p * band[b], &sb, &cb);
+      dp += band[b] * (g[(1 + 2 * b) * P] * cb - g[(2 + 2 * b) * P] * sb);
+    }
+    terms[2 * it] = dp * dpdy;
+    terms[2 * it + 1] = dp * dpdx;
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    float sy = 0.0f, sx = 0.0f;
+    for (int i = 0; i < KP; ++i) {
+      sy += terms[2 * (r * KP + i)];
+      sx += terms[2 * (r * KP + i) + 1];
+    }
+    dcoords[2 * (row0 + r)] = sy;
+    dcoords[2 * (row0 + r) + 1] = sx;
+  }
+}
+
 }  // namespace
+
+// dcoords (n, 2) float32: the gradient of the f32 embedding's loss in the
+// coordinates, from grad (n, k * D) float32. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+extern "C" int npp_periodic_embed_bwd(
+    const float* grad, const float* coords, const float* angles,
+    const float* periods, const float* bands, int n_bands,
+    const float* scales, int n_scales, const float* offsets, int n_offsets,
+    const float* angle_offsets, int n_angle_offsets, long long n, int k,
+    float h, float w, float* dcoords, void* stream) {
+  if (n == 0) return 0;
+  const int P = 2 * (1 + n_scales * n_offsets * n_angle_offsets * 2);
+  const int KP = k * P;
+  // rows per block: at most two rounds of kMaxThreads items; threads split
+  // the tile's items into equal rounds (15 rows of 66 items at K = 3: 2
+  // rounds of 495 on 512 threads)
+  const long long tile_rows = KP < 2 * kMaxThreads ? 2 * kMaxThreads / KP : 1;
+  const long long items = tile_rows * KP;
+  const long long rounds = (items + kMaxThreads - 1) / kMaxThreads;
+  const int threads = (int)(((items + rounds - 1) / rounds + 31) / 32 * 32);
+  const size_t smem = (size_t)KP * sizeof(Channel) + n_bands * sizeof(float) +
+                      (size_t)items * 2 * sizeof(float);
+  if (smem > (size_t)kSmemBytes) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + tile_rows - 1) / tile_rows;
+  periodic_embed_bwd_kernel<<<(unsigned)blocks, threads, smem,
+                              (cudaStream_t)stream>>>(
+      grad, coords, angles, periods, bands, n_bands, scales, n_scales,
+      offsets, n_offsets, angle_offsets, n_angle_offsets, n, k, h, w,
+      (int)tile_rows, dcoords);
+  return (int)cudaGetLastError();
+}
 
 // out: (n, k * D) float32 (out_bf16 = 0) or bfloat16 (out_bf16 = 1).
 // Launches on `stream` and returns cudaGetLastError() (0 on success).

@@ -24,6 +24,11 @@
 //    pass over shared memory, one f32 partial row per block, then a second
 //    small kernel sums the partial rows in a fixed order. No atomics, no
 //    float64, no reduction outside this file.
+//  - wide rows (C above what one sweep holds: the style loss's flattened
+//    Grams, 6 rows of up to 65,536): one thread per channel walks the M
+//    rows, writes dx and sums dalpha and ds in registers in row order. No
+//    partial buffer and no second kernel: (16 * SMs, C) partials would be
+//    553 MB at C = 65,536.
 //
 // The alpha derivative in f32 without cancellation. With sq = (x/s)^2,
 // beta = 2 - alpha, q = sq/beta, u = 1 + q, L = log1p(q), pw = u^(alpha/2):
@@ -255,6 +260,38 @@ __global__ void rho_bwd_finish(const float* __restrict__ part, int n_blocks,
   }
 }
 
+// Wide rows: thread = channel; its M rows kUnroll at a time, their loads
+// first. Coalesced across the warp (neighbouring channels).
+__global__ void __launch_bounds__(kThreads)
+rho_bwd_wide_kernel(const float* __restrict__ x,
+                    const float* __restrict__ alpha,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ w, const float* __restrict__ g,
+                    float* __restrict__ dx, float* __restrict__ da,
+                    float* __restrict__ ds, long long m, int c) {
+  const int ch = blockIdx.x * kThreads + threadIdx.x;
+  if (ch >= c) return;
+  float4 k0, k1;
+  channel_constants(alpha, scale, w, ch, k0, k1);
+  float acc_a = 0.0f, acc_s = 0.0f;
+  for (long long row = 0; row < m; row += kUnroll) {
+    float xv[kUnroll], gv[kUnroll];
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long r = row + i;
+      xv[i] = r < m ? __ldg(x + r * c + ch) : 0.0f;
+      gv[i] = r < m ? __ldg(g + r) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      const long long r = row + i;
+      if (r < m) dx[r * c + ch] = element(xv[i], gv[i], k0, k1, acc_a, acc_s);
+    }
+  }
+  da[ch] = acc_a;
+  ds[ch] = acc_s;
+}
+
 // Resident blocks of rho_bwd_kernel<V> per SM, at most kMaxBlocksPerSm;
 // asked of the runtime once per V and channel count (its shared memory).
 template <int V>
@@ -275,9 +312,10 @@ int blocks_per_sm(int c) {
 }  // namespace
 
 // x, dx (m, c); alpha, scale, w, da, ds (c,); g (m,); part: scratch of at
-// least 2 * 8 * sm_count * c floats. One sweep must hold a whole
-// row: c <= 1024 where c % 4 == 0 and x, dx are 16-byte aligned, else
-// c <= 256. Launches on `stream` and returns cudaGetLastError() (0 on
+// least 2 * 8 * sm_count * c floats where one sweep holds a whole row
+// (c <= 1024 where c % 4 == 0 and x, dx are 16-byte aligned, else
+// c <= 256); above that the wide kernel runs and part is not used (may be
+// null). Launches on `stream` and returns cudaGetLastError() (0 on
 // success).
 extern "C" int npp_robust_rho_bwd(const float* x, const float* alpha,
                                   const float* scale, const float* w,
@@ -289,8 +327,13 @@ extern "C" int npp_robust_rho_bwd(const float* x, const float* alpha,
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dx)) &
        15) == 0;
   const int V = vec4 ? 4 : 1;
-  if (c <= 0 || c > kThreads * V || m < 0 || sm_count <= 0)
-    return (int)cudaErrorInvalidValue;
+  if (c <= 0 || m < 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
+  if (c > kThreads * V) {
+    rho_bwd_wide_kernel<<<(c + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+        x, alpha, scale, w, g, dx, da, ds, m, c);
+    return (int)cudaGetLastError();
+  }
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * sizeof(float4) * c;
   const int per_sm = vec4 ? blocks_per_sm<4>(c) : blocks_per_sm<1>(c);
   const long long rows_per_sweep = kThreads * V / c;   // >= 1

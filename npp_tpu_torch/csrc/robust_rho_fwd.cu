@@ -29,6 +29,14 @@
 //    (flat path);
 //  - sums run in a fixed order (lane order, then the butterfly): no
 //    atomics, the same bits on every run.
+//  - wide rows (C above 1,024, the style loss's flattened Grams: 6 rows of
+//    4,096, 16,384 and 65,536): a warp per row would leave the card idle
+//    and the channels' constants no longer fit in shared memory, so each
+//    row is cut into chunks of 2,048 columns, one block per (row, chunk),
+//    which computes the constants per element, sums its chunk (butterfly,
+//    then the warps in order) and writes one partial; a second small kernel
+//    adds each row's partials in chunk order. No float atomics: the same
+//    bits on every run, as on the other paths.
 // rho = (beta/alpha_safe) expm1(alpha/2 log1p(sq/beta)): pow(u, alpha/2) - 1
 // cancels in f32 for small alpha. log1pf and expm1f are the precise ones:
 // cheaper forms (a corrected logf, series for small arguments) were as
@@ -49,6 +57,9 @@ constexpr int kPerThread = 4;                   // flat path: values a thread
 constexpr int kTile = kThreads * kPerThread;    // holds in one tile
 constexpr int kUnroll = 4;   // vector path: row groups whose loads are in
                              // flight together
+constexpr int kWide = -2;                       // lanes_log2 of a wide row
+constexpr int kWideChunk = 2048;                // its columns per block
+constexpr int kWidePerThread = kWideChunk / kThreads;
 
 // One segment of the launch, as the kernel sees it.
 struct Segment {
@@ -60,8 +71,11 @@ struct Segment {
   long long m;
   long long rows_per_block;
   int c;
-  int lanes_log2;    // lanes per row = 2^lanes_log2; -1: the flat path
+  float* part;       // wide path: (m, n_chunks) partial row sums
+  int lanes_log2;    // lanes per row = 2^lanes_log2; -1: the flat path;
+                     // kWide: the wide path
   int per_lane;      // float4 a lane reads per row (vector path)
+  int n_chunks;      // wide path: chunks of kWideChunk columns per row
   int block_begin;   // first block of this segment
 };
 
@@ -181,6 +195,47 @@ __device__ __forceinline__ void rows_flat(const Segment& sp,
   }
 }
 
+// Wide path: block `b` of the segment sums chunk b % n_chunks of row
+// b / n_chunks into its partial. All loads of a thread go out before the
+// arithmetic; the constants are computed per element from alpha, s and w.
+__device__ __forceinline__ void row_chunk_wide(const Segment& sp, long long b,
+                                               float* red) {
+  const long long row = b / sp.n_chunks;
+  const int chunk = (int)(b - row * sp.n_chunks);
+  const int c0 = chunk * kWideChunk + threadIdx.x;
+  const float* xr = sp.x + row * sp.c;
+  float xv[kWidePerThread], av[kWidePerThread], sv[kWidePerThread],
+      wv[kWidePerThread];
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const int ch = c0 + i * kThreads;
+    const bool in = ch < sp.c;
+    xv[i] = in ? __ldg(xr + ch) : 0.0f;
+    av[i] = in ? __ldg(sp.alpha + ch) : 1.0f;
+    sv[i] = in ? __ldg(sp.scale + ch) : 1.0f;
+    wv[i] = in ? __ldg(sp.w + ch) : 0.0f;
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kWidePerThread; ++i) {
+    const float a = av[i];
+    const float bs = fmaxf(fabsf(a - 2.0f), kEps);
+    const float asafe = (a >= 0.0f ? 1.0f : -1.0f) * fmaxf(fabsf(a), kEps);
+    if (c0 + i * kThreads < sp.c)
+      acc += rho_w(xv[i], make_float4(1.0f / sv[i], 0.5f * a, 1.0f / bs,
+                                      wv[i] * (bs / asafe)));
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int k = 0; k < kWarps; ++k) s += red[k];
+    sp.part[row * sp.n_chunks + chunk] = s;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 rho_fwd_group_kernel(const Plan plan) {
   __shared__ float4 consts[kMaxChannels];
@@ -192,6 +247,10 @@ rho_fwd_group_kernel(const Plan plan) {
 #pragma unroll
   for (int s = 1; s < kMaxSegments; ++s)
     if (s < plan.n && b >= plan.seg[s].block_begin) sp = plan.seg[s];
+  if (sp.lanes_log2 == kWide) {   // the same on every thread of the block
+    row_chunk_wide(sp, b - sp.block_begin, tile);
+    return;
+  }
   for (int ch = threadIdx.x; ch < sp.c; ch += kThreads)
     consts[ch] = channel_constants(sp, ch);
   __syncthreads();
@@ -201,6 +260,21 @@ rho_fwd_group_kernel(const Plan plan) {
     rows_vec(sp, consts, row0, row_end);
   else
     rows_flat(sp, consts, tile, row0, row_end);
+}
+
+// Wide rows: r[row] = the row's partials summed in chunk order. blockIdx.y
+// is the segment; other segments' blocks return.
+__global__ void rho_fwd_wide_finish(const Plan plan) {
+  Segment sp = plan.seg[0];
+#pragma unroll
+  for (int s = 1; s < kMaxSegments; ++s)
+    if (s == (int)blockIdx.y) sp = plan.seg[s];
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (sp.lanes_log2 != kWide || row >= sp.m) return;
+  const float* p = sp.part + row * sp.n_chunks;
+  float s = 0.0f;
+  for (int k = 0; k < sp.n_chunks; ++k) s += p[k];
+  sp.r[row] = s;
 }
 
 // Resident blocks of the kernel per SM, at most kMaxBlocksPerSm; asked of
@@ -230,21 +304,29 @@ struct RhoSegment {
   float* r;
   long long m;
   long long c;
+  float* part;   // c > 1024: m * ceil(c / 2048) floats of scratch
 };
 
-// r of each of the n (1 to 5) segments, in one launch on `stream`. Each c
-// is 1 to 1024. Returns cudaGetLastError() (0 on success).
+// r of each of the n (1 to 5) segments, in one launch on `stream` (and,
+// where a segment has more than 1024 channels, a second small one that
+// finishes the wide rows). Returns cudaGetLastError() (0 on success).
 extern "C" int npp_robust_rho_fwd_group(const RhoSegment* segs, int n,
                                         int sm_count, void* stream) {
   if (n < 1 || n > kMaxSegments || sm_count <= 0)
     return (int)cudaErrorInvalidValue;
-  double total = 0.0;
+  double total = 0.0;     // elements of the narrow segments
+  long long wide_m = 0;   // rows of the longest wide segment
   for (int s = 0; s < n; ++s) {
-    if (segs[s].c < 1 || segs[s].c > kMaxChannels || segs[s].m < 0)
+    if (segs[s].c < 1 || segs[s].c > (1LL << 30) || segs[s].m < 0)
       return (int)cudaErrorInvalidValue;
-    total += (double)segs[s].m * (double)segs[s].c;
+    if (segs[s].c > kMaxChannels) {
+      if (segs[s].part == nullptr && segs[s].m > 0)
+        return (int)cudaErrorInvalidValue;
+      wide_m = segs[s].m > wide_m ? segs[s].m : wide_m;
+    } else {
+      total += (double)segs[s].m * (double)segs[s].c;
+    }
   }
-  if (total == 0.0) return (int)cudaGetLastError();
   const double target = (double)blocks_per_sm() * sm_count;
   Plan plan = {};
   plan.n = n;
@@ -259,6 +341,15 @@ extern "C" int npp_robust_rho_fwd_group(const RhoSegment* segs, int n,
     d.r = in.r;
     d.m = in.m;
     d.c = (int)in.c;
+    d.part = in.part;
+    d.block_begin = (int)begin;
+    if (d.c > kMaxChannels) {   // one block per (row, chunk)
+      d.lanes_log2 = kWide;
+      d.n_chunks = (d.c + kWideChunk - 1) / kWideChunk;
+      d.rows_per_block = 1;
+      begin += in.m * d.n_chunks;
+      continue;
+    }
     long long sweep;   // rows a block takes in one pass of its loop
     if (d.c % 4 == 0 && (reinterpret_cast<uintptr_t>(in.x) & 15) == 0) {
       const int n4 = d.c / 4;
@@ -273,16 +364,22 @@ extern "C" int npp_robust_rho_fwd_group(const RhoSegment* segs, int n,
       sweep = kTile / d.c < kThreads ? kTile / d.c : kThreads;
     }
     // this segment's share of one full wave of blocks
-    long long share = (long long)(target * ((double)in.m * in.c) / total +
-                                  0.5);
+    long long share = total > 0.0
+        ? (long long)(target * ((double)in.m * in.c) / total + 0.5) : 1;
     if (share < 1) share = 1;
     const long long sweeps = (in.m + sweep - 1) / sweep;
     d.rows_per_block = (sweeps + share - 1) / share * sweep;
-    d.block_begin = (int)begin;
     if (in.m > 0) begin += (in.m + d.rows_per_block - 1) / d.rows_per_block;
   }
   if (begin > 0)
     rho_fwd_group_kernel<<<(unsigned)begin, kThreads, 0,
                            (cudaStream_t)stream>>>(plan);
+  if (wide_m > 0) {
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    rho_fwd_wide_finish<<<dim3((unsigned)((wide_m + kThreads - 1) / kThreads),
+                               (unsigned)n),
+                          kThreads, 0, (cudaStream_t)stream>>>(plan);
+  }
   return (int)cudaGetLastError();
 }

@@ -3,11 +3,14 @@
 Replaces the XLA-fused `TaskEmbedder.embed` (npp_tpu/nn/embedder.py:87-162)
 and, written in bfloat16, `make_embedding_table`'s `.astype(jnp.bfloat16)`
 of it. Memory-bound: the output write is the whole cost (see the source's
-note). Forward only: coordinates carry no gradient while the warp field is
-off.
+note). With the warp field on the coordinates are learned: where they
+require a gradient, the f32 embedding is a `torch.autograd.Function` whose
+backward is K1's backward kernel (`npp_periodic_embed_bwd`, the gradient in
+the coordinates; angles, periods and bands are constants).
 
-A CUDA tensor goes through the kernel or the call raises; a CPU tensor goes
-through `periodic_embed_plain`, the same function in plain PyTorch.
+A CUDA tensor goes through the kernels or the call raises; a CPU tensor goes
+through `periodic_embed_plain`, the same function in plain PyTorch (its
+coordinate gradient by autograd).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 
 from .build import check_cuda, load_library
 
-LAUNCHES = {'periodic_embed': 0, 'periodic_embed_bf16': 0}
+LAUNCHES = {'periodic_embed': 0, 'periodic_embed_bf16': 0,
+            'periodic_embed_bwd': 0}
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -31,6 +35,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [p, p, p, p, i, p, i, p, i, p, i, ctypes.c_longlong, i,
                        ctypes.c_float, ctypes.c_float, p, i, p]
         fn.restype = ctypes.c_int
+        bwd = lib.npp_periodic_embed_bwd
+        bwd.argtypes = [p, p, p, p, p, i, p, i, p, i, p, i, ctypes.c_longlong,
+                        i, ctypes.c_float, ctypes.c_float, p, p]
+        bwd.restype = ctypes.c_int
     return lib
 
 
@@ -69,6 +77,92 @@ def periodic_embed_plain(coords_yx: torch.Tensor, angles: torch.Tensor,
     return torch.cat(per, dim=-1).to(out_dtype)
 
 
+class _Args:
+    """The kernels' constant arguments on the card, checked once per call."""
+
+    def __init__(self, coords_yx, angles, periods, bands, freq_scales,
+                 freq_offsets, angle_offsets, res):
+        dev = coords_yx.device
+        if dev.type != 'cuda':
+            raise RuntimeError(f'periodic_embed: unsupported device {dev}')
+        if coords_yx.dim() != 2 or coords_yx.shape[1] != 2:
+            raise ValueError(
+                f'coords must be (N, 2), got {tuple(coords_yx.shape)}')
+        self.k = angles.shape[0]
+        if angles.shape != (self.k, 2) or periods.shape != (self.k, 2):
+            raise ValueError('angles and periods must both be (K, 2)')
+
+        def vec(v):
+            if not torch.is_tensor(v):      # a tuple of the config: copied once
+                return _device_vector(tuple(float(x) for x in v), dev)
+            return v.to(device=dev, dtype=torch.float32).contiguous()
+
+        self.dev = dev
+        self.ang, self.per = vec(angles), vec(periods)
+        self.n_bands = 0 if bands is None else int(bands.shape[0])
+        self.bnd = vec(bands) if self.n_bands else _device_vector((0.0,), dev)
+        self.sc, self.off, self.aoff = (vec(freq_scales), vec(freq_offsets),
+                                        vec(angle_offsets))
+        self.counts = (len(freq_scales), len(freq_offsets),
+                       len(angle_offsets))
+        self.d = embed_dims(self.n_bands, *self.counts)[1]
+        self.res = (float(res[0]), float(res[1]))
+
+    def consts(self):
+        """The C functions' arguments from angles to angle_offsets."""
+        return (self.ang.data_ptr(), self.per.data_ptr(), self.bnd.data_ptr(),
+                self.n_bands, self.sc.data_ptr(), self.counts[0],
+                self.off.data_ptr(), self.counts[1], self.aoff.data_ptr(),
+                self.counts[2])
+
+
+def _fwd_launch(coords: torch.Tensor, a: _Args,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    n = coords.shape[0]
+    out = torch.empty((n, a.k * a.d), dtype=out_dtype, device=a.dev)
+    bf16 = out_dtype == torch.bfloat16
+    status = _lib().npp_periodic_embed(
+        coords.data_ptr(), *a.consts(), n, a.k, *a.res, out.data_ptr(),
+        int(bf16), torch.cuda.current_stream(a.dev).cuda_stream)
+    check_cuda(status, 'periodic_embed')
+    LAUNCHES['periodic_embed_bf16' if bf16 else 'periodic_embed'] += 1
+    return out
+
+
+def periodic_embed_bwd_launch(grad: torch.Tensor, coords: torch.Tensor,
+                              a: _Args) -> torch.Tensor:
+    """dL/d(y, x) (N, 2) from the f32 embedding's gradient (N, K * D) on
+    the card: K1's backward kernel."""
+    grad = grad.to(torch.float32).contiguous()
+    n = coords.shape[0]
+    if grad.shape != (n, a.k * a.d):
+        raise ValueError(f'grad must be {(n, a.k * a.d)}, got '
+                         f'{tuple(grad.shape)}')
+    dcoords = torch.empty((n, 2), dtype=torch.float32, device=a.dev)
+    status = _lib().npp_periodic_embed_bwd(
+        grad.data_ptr(), coords.data_ptr(), *a.consts(), n, a.k, *a.res,
+        dcoords.data_ptr(), torch.cuda.current_stream(a.dev).cuda_stream)
+    check_cuda(status, 'periodic_embed_bwd')
+    LAUNCHES['periodic_embed_bwd'] += 1
+    return dcoords
+
+
+class _PeriodicEmbed(torch.autograd.Function):
+    """K1 forward in f32; its backward is K1's backward kernel, in the
+    coordinates only."""
+
+    @staticmethod
+    def forward(ctx, coords, a):
+        ctx.save_for_backward(coords)
+        ctx.args = a
+        return _fwd_launch(coords, a, torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (coords,) = ctx.saved_tensors
+        return periodic_embed_bwd_launch(grad, coords, ctx.args), None
+
+
 def periodic_embed(coords_yx: torch.Tensor, angles: torch.Tensor,
                    periods: torch.Tensor, bands: Optional[torch.Tensor],
                    freq_scales: Sequence[float], freq_offsets: Sequence[float],
@@ -77,43 +171,20 @@ def periodic_embed(coords_yx: torch.Tensor, angles: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """coords (N, 2) f32 (y, x) -> (N, K * D) in out_dtype (float32 or
     bfloat16, computed in f32 and rounded to nearest even). angles, periods
-    (K, 2); bands (F,) or None for the identity Fourier stage."""
+    (K, 2); bands (F,) or None for the identity Fourier stage.
+    Differentiable in the coordinates in float32."""
     if out_dtype not in OUT_DTYPES:
         raise ValueError(f'periodic_embed writes {OUT_DTYPES}, not {out_dtype}')
     if coords_yx.device.type == 'cpu':
         return periodic_embed_plain(coords_yx, angles, periods, bands,
                                     freq_scales, freq_offsets, angle_offsets,
                                     res, out_dtype)
-    dev = coords_yx.device
-    if dev.type != 'cuda':
-        raise RuntimeError(f'periodic_embed: unsupported device {dev}')
+    a = _Args(coords_yx, angles, periods, bands, freq_scales, freq_offsets,
+              angle_offsets, res)
     coords = coords_yx.to(torch.float32).contiguous()
-    if coords.dim() != 2 or coords.shape[1] != 2:
-        raise ValueError(f'coords must be (N, 2), got {tuple(coords.shape)}')
-    k = angles.shape[0]
-    if angles.shape != (k, 2) or periods.shape != (k, 2):
-        raise ValueError('angles and periods must both be (K, 2)')
-
-    def vec(v):
-        if not torch.is_tensor(v):      # a tuple of the config: copied once
-            return _device_vector(tuple(float(x) for x in v), dev)
-        return v.to(device=dev, dtype=torch.float32).contiguous()
-
-    ang, per = vec(angles), vec(periods)
-    n_bands = 0 if bands is None else int(bands.shape[0])
-    bnd = vec(bands) if n_bands else _device_vector((0.0,), dev)
-    sc, off, aoff = vec(freq_scales), vec(freq_offsets), vec(angle_offsets)
-    _, d = embed_dims(n_bands, len(freq_scales), len(freq_offsets),
-                      len(angle_offsets))
-    n = coords.shape[0]
-    out = torch.empty((n, k * d), dtype=out_dtype, device=dev)
-    bf16 = out_dtype == torch.bfloat16
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _lib().npp_periodic_embed(
-        coords.data_ptr(), ang.data_ptr(), per.data_ptr(), bnd.data_ptr(),
-        n_bands, sc.data_ptr(), len(freq_scales), off.data_ptr(),
-        len(freq_offsets), aoff.data_ptr(), len(angle_offsets), n, k,
-        float(res[0]), float(res[1]), out.data_ptr(), int(bf16), stream)
-    check_cuda(status, 'periodic_embed')
-    LAUNCHES['periodic_embed_bf16' if bf16 else 'periodic_embed'] += 1
-    return out
+    if coords.requires_grad and torch.is_grad_enabled():
+        if out_dtype != torch.float32:
+            raise ValueError('periodic_embed is differentiable in float32 '
+                             'only')
+        return _PeriodicEmbed.apply(coords, a)
+    return _fwd_launch(coords, a, out_dtype)

@@ -14,9 +14,13 @@ latent -> (alpha, s) maps stay plain torch with autograd (losses/robust.py).
 
 Bound: memory. The forward reads x (M, C) once and writes r (M,), for up
 to five (x, alpha, s, w) segments in one launch (`rho_rows_group`: the five
-LPIPS layers of a step). The backward reads x and g and writes dx, one
-launch per segment, and sums dalpha and ds per channel on the device in a
-fixed order. Each source's note gives its design. The backward's alpha
+LPIPS layers of a step, or the style loss's three layers). The backward
+reads x and g and writes dx, one launch per segment, and sums dalpha and ds
+per channel on the device in a fixed order. Rows wider than 1,024 channels
+(the style loss's flattened Grams, (6, 4,096) to (6, 65,536)) take each
+kernel's wide path: the forward cuts a row into chunks of WIDE_CHUNK
+columns with a partial sum each, the backward runs a thread per channel
+down the rows. Each source's note gives its design. The backward's alpha
 derivative is computed in f32 in forms without the cancellation of the
 direct one; `rho_bwd_plain` is the same arithmetic in PyTorch, line by
 line.
@@ -39,6 +43,8 @@ from .build import check_cuda, load_library
 LAUNCHES = collections.Counter()
 F32_EPS = float(np.finfo(np.float32).eps)
 MAX_SEGMENTS = 5     # segments of one forward launch (csrc/robust_rho_fwd.cu)
+MAX_NARROW = 1024    # wider rows take the forward's wide path, whose
+WIDE_CHUNK = 2048    # blocks each sum this many columns of a row
 
 
 def rho_otherwise(x: torch.Tensor, alpha: torch.Tensor,
@@ -117,11 +123,12 @@ def rho_bwd_plain(g: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
 
 
 class _Segment(ctypes.Structure):
-    """csrc/robust_rho_fwd.cu's RhoSegment: x, alpha, scale, w, r, m, c."""
+    """csrc/robust_rho_fwd.cu's RhoSegment: x, alpha, scale, w, r, m, c,
+    and part, the wide path's scratch."""
     _fields_ = [('x', ctypes.c_void_p), ('alpha', ctypes.c_void_p),
                 ('scale', ctypes.c_void_p), ('w', ctypes.c_void_p),
                 ('r', ctypes.c_void_p), ('m', ctypes.c_longlong),
-                ('c', ctypes.c_longlong)]
+                ('c', ctypes.c_longlong), ('part', ctypes.c_void_p)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,9 +161,13 @@ def rho_fwd_group_launch(segments):
     arr = (_Segment * n)()
     for i, (x, alpha, scale, w) in enumerate(segments):
         m, c = x.shape
-        r = torch.empty((m,), dtype=torch.float32, device=dev)
+        # a wide row's partials go after the m outputs
+        n_part = m * -(-c // WIDE_CHUNK) if c > MAX_NARROW else 0
+        buf = torch.empty((m + n_part,), dtype=torch.float32, device=dev)
+        r = buf[:m]
         arr[i] = _Segment(x.data_ptr(), alpha.data_ptr(), scale.data_ptr(),
-                          w.data_ptr(), r.data_ptr(), m, c)
+                          w.data_ptr(), r.data_ptr(), m, c,
+                          buf[m:].data_ptr() if n_part else None)
         outs.append(r)
     status = _fwd_fn()(
         arr, n, _sm_count(dev.index),
@@ -183,10 +194,9 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def bwd_max_channels(c: int) -> int:
-    """The largest C the backward kernel takes: one sweep of 256 threads
-    (4 values each where C % 4 == 0, and x is 16-byte aligned; the launcher
-    checks that and fails the launch above 256 otherwise) holds a whole
-    row."""
+    """The largest C of the backward's row path: one sweep of 256 threads
+    (4 values each where C % 4 == 0, and x is 16-byte aligned, which the
+    launcher checks) holds a whole row. Wider rows take its wide path."""
     return 1024 if c % 4 == 0 else 256
 
 
@@ -202,12 +212,14 @@ def rho_bwd_launch(g, x, alpha, scale, w):
     dev = x.device
     sms = _sm_count(dev.index)
     dx = torch.empty_like(x)
-    # dalpha, dscale, then the kernel's (2, 8 * SMs, C) partial sums
-    buf = torch.empty(((2 + 16 * sms) * c,), dtype=torch.float32, device=dev)
+    # dalpha, dscale, then the row path's (2, 8 * SMs, C) partial sums (the
+    # wide path needs none)
+    n_part = 16 * sms * c if c <= bwd_max_channels(c) else 0
+    buf = torch.empty((2 * c + n_part,), dtype=torch.float32, device=dev)
     da, ds, part = buf[:c], buf[c:2 * c], buf[2 * c:]
     status = _bwd_lib().npp_robust_rho_bwd(
         x.data_ptr(), alpha.data_ptr(), scale.data_ptr(), w.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        g.data_ptr(), dx.data_ptr(), part.data_ptr() if n_part else None,
         da.data_ptr(), ds.data_ptr(), m, c, sms,
         torch.cuda.current_stream(dev).cuda_stream)
     check_cuda(status, 'robust_rho_bwd')
@@ -264,9 +276,6 @@ def rho_rows_group(xs: Sequence[torch.Tensor], alphas: Sequence[torch.Tensor],
                              '(C,)')
         if any(t.dtype != torch.float32 for t in (x, alpha, scale, w)):
             raise ValueError('rho_rows takes float32 tensors')
-        if c > bwd_max_channels(c):
-            raise ValueError(f'rho_rows takes at most {bwd_max_channels(c)} '
-                             f'channels here, got {c}')
         flat += [x.contiguous(), alpha.contiguous(), scale.contiguous(),
                  w.detach().contiguous()]
     return list(_RhoRowsGroup.apply(*flat))

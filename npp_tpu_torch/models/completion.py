@@ -1,10 +1,13 @@
 """Completion task: inpaint the unknown region of a near-periodic image
 (reference: NPP_completion/train.py:20-343). Port of
-`npp_tpu/models/completion.py` without the seam-aware composite
-(comp_seam needs cv2.inpaint) and the held-out snapshot policy, so the
-outputs `pred_rgb_img_comp_seam` and `val_lpips_seam` are absent."""
+`npp_tpu/models/completion.py`, with the held-out blocks (cfg.comp_heldout,
+models/heldout.py) and the 'best' snapshot policy, without the seam-aware
+composite (comp_seam needs cv2.inpaint), so the outputs
+`pred_rgb_img_comp_seam` and `val_lpips_seam` are absent."""
 from __future__ import annotations
 
+import copy
+import dataclasses
 import os
 from typing import Dict, Optional
 
@@ -15,29 +18,38 @@ from ..device import matmul_precision, resolve_device
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse, mse2psnr
 from ..utils.io import write_rgb
+from .heldout import carve_heldout, heldout_psnr
 from .loaders import TaskData, load_completion
 from .pipeline import FitState, check_slice, fit_image
 
 
 @torch.no_grad()
 def evaluate(data: TaskData, params, render, adaptive_pix, loss_type: str,
-             device: torch.device) -> Dict[str, object]:
+             device: torch.device, return_pred: bool = False
+             ) -> Dict[str, object]:
     """Render the canvas and compose the reference's output set
-    (reference: NPP_completion/train.py:270-331), plus PSNR metrics."""
+    (reference: NPP_completion/train.py:270-331), plus PSNR metrics.
+    return_pred: also emit the raw canvas render as 'pred' (numpy), which
+    the 'best' snapshot policy stores to re-compose at the end."""
     h, w = data.img.shape[:2]
-    return compose_outputs(render(params, h, w), data, adaptive_pix,
-                           loss_type, device)
+    pred = render(params, h, w)
+    out = compose_outputs(pred, data, adaptive_pix, loss_type, device)
+    if return_pred:
+        out['pred'] = pred.cpu().numpy()
+    return out
 
 
 @torch.no_grad()
-def compose_outputs(pred: torch.Tensor, data: TaskData, adaptive_pix,
+def compose_outputs(pred, data: TaskData, adaptive_pix,
                     loss_type: str, device: torch.device) -> Dict[str, object]:
-    """The output set + metrics from an already-rendered canvas."""
+    """The output set + metrics from an already-rendered canvas (a tensor
+    or a numpy array). Also 'heldout_psnr' where `data` carries held-out
+    blocks: against their known input content, never the hole's truth."""
     def dev(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                device=device)
 
-    pred = pred.to(device=device, dtype=torch.float32)
+    pred = torch.as_tensor(pred).to(device=device, dtype=torch.float32)
     mask, valid = dev(data.mask), dev(data.valid_mask)
     img, masked = dev(data.img), dev(data.masked_img)
 
@@ -64,7 +76,28 @@ def compose_outputs(pred: torch.Tensor, data: TaskData, adaptive_pix,
         pv, gv = pred[vc[:, 0], vc[:, 1]], img[vc[:, 0], vc[:, 1]]
         out['img_val_loss'] = float(img2mse(pv, gv, loss_type, adaptive_pix))
         out['val_psnr'] = float(mse2psnr(torch.mean((pv - gv) ** 2)))
+    if 'heldout_mask' in data.extra:
+        hp = heldout_psnr(pred.cpu().numpy(), data)
+        if hp is not None:
+            out['heldout_psnr'] = hp
     return out
+
+
+def heldout_views(data: TaskData, cfg):
+    """The fit-side and eval-side views for cfg.comp_heldout
+    (npp_tpu/models/completion.py:326-345): (data_fit, data_eval,
+    snapshot_best). data_fit has the held-out blocks carved; data_eval
+    keeps the original mask and known content plus the held-out extras, so
+    evaluate() emits 'heldout_psnr'; snapshot_best: the 'best' policy is on
+    and blocks were placeable."""
+    data_fit = carve_heldout(data, cfg)
+    if data_fit is data or 'heldout_mask' not in data_fit.extra:
+        return data, data, False
+    extra = dict(data.extra)
+    extra.update({k: data_fit.extra[k] for k in
+                  ('heldout_rects', 'heldout_mask', 'heldout_gt')})
+    return data_fit, dataclasses.replace(data, extra=extra), \
+        cfg.comp_snapshot == 'best'
 
 
 def _save(d: str, res: Dict[str, object], keys) -> None:
@@ -85,15 +118,27 @@ def run_completion(cfg, save: bool = True, device=None,
     name = cfg.datadir.rstrip('/').split('/')[-1] or 'example'
     save_dir = os.path.join(cfg.basedir, f'{cfg.expname}_top{cfg.p_topk}',
                             name)
+    data_fit, data_eval, snapshot_best = heldout_views(data, cfg)
     evals: Dict[int, Dict[str, float]] = {}
+    best: Dict[str, object] = {}   # best held-out snapshot
 
     def eval_hook(i: int, state: FitState, render):
-        res = evaluate(data, state.params, render, state.params.adaptive_pix,
-                       cfg.loss_type, device)
+        res = evaluate(data_eval, state.params, render,
+                       state.params.adaptive_pix, cfg.loss_type, device,
+                       return_pred=snapshot_best)
         evals[i] = {k: v for k, v in res.items() if np.isscalar(v)}
+        ho = res.get('heldout_psnr')
         print(f"[completion] eval@{i}: "
               f"train_psnr={res.get('train_psnr', float('nan')):.2f} "
-              f"val_psnr={res.get('val_psnr', float('nan')):.2f}", flush=True)
+              f"val_psnr={res.get('val_psnr', float('nan')):.2f}" +
+              (f" heldout_psnr={ho:.2f}" if ho is not None else ""),
+              flush=True)
+        if snapshot_best and ho is not None and \
+                ho > best.get('score', -np.inf):
+            # the render and a copy of the pixel latents (a later step
+            # moves the live ones)
+            best.update(score=ho, iter=i, pred=res['pred'],
+                        adaptive=copy.deepcopy(state.params.adaptive_pix))
         if save:
             d = os.path.join(save_dir, f'testset_{i:06d}')
             _save(d, res, ('pred_rgb_train_img', 'pred_rgb_val_img',
@@ -104,13 +149,20 @@ def run_completion(cfg, save: bool = True, device=None,
             write_rgb(os.path.join(d, 'input_rgb_img.png'),
                       (data.masked_img * data.valid_mask)[:oh, :ow])
 
-    result = fit_image(cfg, data, eval_hook=eval_hook, log_every=cfg.i_print,
-                       device=device)
+    result = fit_image(cfg, data_fit, eval_hook=eval_hook,
+                       log_every=cfg.i_print, device=device)
     params = result.state.params
     with matmul_precision('float32'):    # the render sets its own
-        final = evaluate(data, params, result.render, params.adaptive_pix,
-                         cfg.loss_type, device)
-    final['snapshot_iter'] = cfg.N_iters - 1
+        final = evaluate(data_eval, params, result.render,
+                         params.adaptive_pix, cfg.loss_type, device)
+        final['snapshot_iter'] = cfg.N_iters - 1
+        if snapshot_best and best and \
+                best['score'] > final.get('heldout_psnr', -np.inf):
+            # the held-out criterion prefers an earlier milestone:
+            # re-compose the final output set from its stored render
+            final = compose_outputs(best['pred'], data_eval, best['adaptive'],
+                                    cfg.loss_type, device)
+            final['snapshot_iter'] = best['iter']
 
     # final LPIPS of the composite vs gt (absolute values need converted
     # pretrained towers)

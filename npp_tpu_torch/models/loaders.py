@@ -1,16 +1,22 @@
 """Task data loaders (reference: loaders/loaders.py:82-136).
 
-A copy of the completion half of `npp_tpu/models/loaders.py`: host-side
-numpy preprocessing whose outputs are plain arrays + metadata consumed by the
-pipelines. The segmentation and remapping loaders are not ported yet.
+A copy of the completion and remapping loaders of
+`npp_tpu/models/loaders.py`: host-side numpy preprocessing whose outputs
+are plain arrays + metadata consumed by the pipelines. The remapping loader
+is split into file reading (`load_remapping`) and a function on arrays
+(`remapping_data`, whose blur map runs on the caller's device), so that
+data made in memory needs no PNGs. The segmentation loader is not ported
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
+from ..ops.blur import blur_map
 from ..utils.io import patch_size_from_periods, read_odgt, read_gray, read_rgb
 
 
@@ -111,3 +117,39 @@ def load_completion(cfg) -> TaskData:
                                selected_periods=periods,
                                patch_size=patch_size_from_periods(periods)),
                       cfg.canvas_multiple)
+
+
+def remapping_data(arrays: dict, cfg, device: Optional[torch.device] = None
+                   ) -> TaskData:
+    """reference: loaders.py:244-304, on arrays: 'gt_img' (H, W, 3) in
+    [0, 1], 'valid_mask' (H, W, 1) and the record's 'selected_shifts',
+    'selected_angles', 'selected_periods' (and optional distances). `mask`
+    carries the clear mask (the pixel loss's weights); train = all valid
+    pixels, val = clear & valid. The blur map runs on `device`."""
+    img = np.asarray(arrays['gt_img'], np.float64)
+    valid_mask = np.asarray(arrays['valid_mask'], np.float64)
+    _, clear = blur_map(np.uint8(img * 255), thresh=cfg.blur_thresh,
+                        device=device)
+    clear_mask = clear[..., None] / 255.0 * valid_mask
+
+    train = np.stack(np.nonzero(valid_mask[..., 0]), 1)
+    val = np.stack(np.nonzero((clear_mask * valid_mask)[..., 0]), 1)
+
+    shifts, angles, periods = _topk_periodicity(arrays, cfg.p_topk,
+                                                cfg.aux_gate_ratio)
+    return pad_canvas(TaskData(img=img, masked_img=img, mask=clear_mask,
+                               valid_mask=valid_mask, i_train=train, i_val=val,
+                               selected_shifts=shifts, selected_angles=angles,
+                               selected_periods=periods,
+                               patch_size=patch_size_from_periods(periods),
+                               extra={'clear_mask': clear_mask}),
+                      cfg.canvas_multiple)
+
+
+def load_remapping(cfg, device: Optional[torch.device] = None) -> TaskData:
+    """reference: loaders.py:244-304: cfg.datadir's record and images, then
+    remapping_data."""
+    info = read_odgt(cfg.datadir)
+    arrays = dict(info, gt_img=read_rgb(info['fpath_gt_img']),
+                  valid_mask=read_gray(info['fpath_valid_mask']))
+    return remapping_data(arrays, cfg, device)

@@ -1,6 +1,6 @@
 """The per-image fit driver, a port of `npp_tpu/models/pipeline.py` for the
-completion task: build components -> staged fit (patch-size decay,
-pipeline.py:240-250) -> eval hooks at the i_testset cadence."""
+completion and remapping tasks: build components -> staged fit (patch-size
+decay, pipeline.py:240-250) -> eval hooks at the i_testset cadence."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,24 +14,21 @@ import torch
 from ..device import allows_tf32, matmul_precision, resolve_device
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
+from ..losses.style import StyleLoss
 from ..nn.embedder import TaskEmbedder, make_task_embedder
 from ..nn.mlp import NPPNet, NPPNetTop1
 from ..utils.pools import pad_pool_pow2
 from .loaders import TaskData
 from .sampler import build_sampler_consts
-from .trainer import (FitConsts, FitState, init_fit_state, make_fit_block,
-                      make_render)
+from .trainer import (COMPLETION_TASK, FitConsts, FitState, TaskSpec,
+                      init_fit_state, make_fit_block, make_render)
 
 
 def check_slice(cfg) -> None:
-    """Options outside the port's first slice raise instead of silently
-    doing something else (ROADMAP.md lists them)."""
+    """Options not ported yet raise instead of silently doing something
+    else (ROADMAP.md lists them)."""
     unported = {
-        'warp_field': cfg.warp_field,
-        'comp_heldout': cfg.comp_heldout,
-        "comp_snapshot='best'": cfg.comp_snapshot != 'last',
         "comp_seam='residual'": cfg.comp_seam != 'none',
-        'use_style_loss': getattr(cfg, 'use_style_loss', False),
     }
     for name, on in unported.items():
         if on:
@@ -45,12 +42,14 @@ class Components:
     model: torch.nn.Module
     percep: Optional[LPIPS]
     contextual: Optional[ContextualLoss]
+    style: Optional[StyleLoss] = None
 
 
-def build_components(cfg, data: TaskData, device: torch.device) -> Components:
+def build_components(cfg, data: TaskData, device: torch.device,
+                     task: TaskSpec = COMPLETION_TASK) -> Components:
     """Embedder (bands from a generator seeded with cfg.seed), MLP (nn.Linear
     init under the same seed, without touching the global RNG) and the loss
-    towers, all on `device`."""
+    towers (the style loss for a task that uses it), all on `device`."""
     h, w = data.img.shape[:2]
     gen = torch.Generator().manual_seed(cfg.seed)
     embedder = make_task_embedder(cfg, np.asarray(data.selected_angles),
@@ -69,19 +68,30 @@ def build_components(cfg, data: TaskData, device: torch.device) -> Components:
                                width=cfg.netwidth, activation=cfg.activation)
     percep = LPIPS(device, net='vgg') if cfg.use_perceptual_loss else None
     contextual = ContextualLoss(device) if cfg.use_contextual_loss else None
-    return Components(embedder, model.to(device), percep, contextual)
+    style = StyleLoss(device, getattr(cfg, 'use_adaptive_style_loss', False)) \
+        if task.use_style and getattr(cfg, 'use_style_loss', False) else None
+    return Components(embedder, model.to(device), percep, contextual, style)
 
 
 def make_fit_consts(cfg, data: TaskData, patch_size: int,
-                    device: torch.device) -> FitConsts:
-    pixel_mask = np.ones_like(data.mask)
-    sampler_mask = (data.mask * data.valid_mask)[..., 0]
-    sampler = build_sampler_consts(data.masked_img, sampler_mask, data.i_train,
+                    device: torch.device,
+                    task: TaskSpec = COMPLETION_TASK) -> FitConsts:
+    """Remapping (pipeline.py:86-102) fits the whole image: its pixels are
+    data.img, weighted by the clear mask, and its sampler's mask is
+    data.mask (the clear mask); completion fits the masked image where
+    known."""
+    remap = task.name == 'remapping'
+    pixel_img = data.img if remap else data.masked_img
+    pixel_mask = data.extra['clear_mask'] if task.pixel_mask_from_gt \
+        else np.ones_like(data.mask)
+    sampler_mask = data.mask[..., 0] if remap \
+        else (data.mask * data.valid_mask)[..., 0]
+    sampler = build_sampler_consts(pixel_img, sampler_mask, data.i_train,
                                    data.i_val, data.selected_shifts,
                                    patch_size, device)
     pool, n = pad_pool_pow2(data.i_train, fill='first')
     return FitConsts(
-        pixel_img=torch.as_tensor(data.masked_img, dtype=torch.float32,
+        pixel_img=torch.as_tensor(pixel_img, dtype=torch.float32,
                                   device=device),
         pixel_mask=torch.as_tensor(pixel_mask, dtype=torch.float32,
                                    device=device),
@@ -107,7 +117,8 @@ def _sync(device: torch.device) -> None:
 def fit_image(cfg, data: TaskData,
               eval_hook: Optional[Callable[[int, FitState, Callable], None]] = None,
               log_every: Optional[int] = None, device=None,
-              checkpoint_dir: Optional[str] = None) -> FitResult:
+              checkpoint_dir: Optional[str] = None,
+              task: TaskSpec = COMPLETION_TASK) -> FitResult:
     """The reference's per-image training loop (NPP_completion/train.py:
     133-264). Runs on the card unless device='cpu' is passed. The history
     records, per log, the metrics and the wall ms per step of the block
@@ -126,13 +137,14 @@ def fit_image(cfg, data: TaskData,
           flush=True)
     # full f32 outside the steps and the render, which set their own
     with matmul_precision('float32'):
-        return _fit(cfg, data, eval_hook, log_every, device)
+        return _fit(cfg, data, eval_hook, log_every, device, task)
 
 
-def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device
-         ) -> FitResult:
-    comps = build_components(cfg, data, device)
-    state = init_fit_state(cfg, comps.model, comps.percep, device)
+def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device,
+         task: TaskSpec) -> FitResult:
+    comps = build_components(cfg, data, device, task)
+    state = init_fit_state(cfg, comps.model, comps.percep, device,
+                           comps.style)
     render = make_render(cfg, comps.embedder)
     gen = torch.Generator().manual_seed(cfg.seed + 1)
 
@@ -148,10 +160,10 @@ def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device
     def stage(ps, pn, blk):
         key = (ps, pn, blk)
         if key not in stages:
-            consts = make_fit_consts(cfg, data, ps, device)
+            consts = make_fit_consts(cfg, data, ps, device, task)
             stages[key] = make_fit_block(cfg, comps.embedder, consts,
                                          comps.percep, comps.contextual, pn,
-                                         ps, blk)
+                                         ps, blk, comps.style, task)
         return stages[key]
 
     history: List[Dict[str, float]] = []
@@ -165,7 +177,7 @@ def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device
             m['iter'] = i
             m['ms_per_step'] = ms_per_step
             history.append(m)
-            print('[completion] iter %d ' % i + ' '.join(
+            print(f'[{task.name}] iter {i} ' + ' '.join(
                 f'{k_}={v:.4g}' for k_, v in m.items() if k_ != 'iter'),
                 flush=True)
         if i % cfg.i_testset == 0 and i > 0 and eval_hook is not None:

@@ -1,7 +1,11 @@
 """Per-image fit engine: the loss, one Adam step, a block of steps, the render.
 
-Port of `npp_tpu/models/trainer.py` for the completion task. What differs
-from the JAX package, and why:
+Port of `npp_tpu/models/trainer.py`, parameterised by a TaskSpec as the
+JAX package's is (completion; remapping adds the style term and weights the
+pixel loss by the clear mask). With cfg.warp_field the coordinates pass
+through the learned warp (nn/warp.py) before the embedding, K1 then runs
+on the fly on warped coordinates with its backward kernel, and no table is
+built. What differs from the JAX package, and why:
  - PyTorch runs eagerly, so a "block" is a Python loop of steps; the canvas
    embedding table (cfg.embed_table, in its dtype, under the same size
    guard) is still built once per block by K1 and gathered per step, as
@@ -31,12 +35,26 @@ from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
 from ..losses.robust import adaptive_init
+from ..losses.style import StyleLoss
 from ..nn.embedder import TaskEmbedder, make_embedding_table
 from ..nn.mlp import render_activation
+from ..nn.warp import WarpField, make_warp, warp_coords
 from .sampler import (SOURCE_SAME, SOURCE_VAL, PatchBatch, SamplerConsts,
                       sample_patches)
 
 RENDER_CHUNK = 1 << 16
+
+
+@dataclass(frozen=True)
+class TaskSpec:
+    """Static per-task differences (npp_tpu/models/trainer.py:52-58)."""
+
+    name: str
+    use_style: bool = False
+    pixel_mask_from_gt: bool = False  # remapping: weight by clear mask values
+
+
+COMPLETION_TASK = TaskSpec(name='completion')
 
 
 @dataclass
@@ -51,14 +69,19 @@ class FitConsts:
 
 
 class FitParams(nn.Module):
-    """Everything Adam trains: the MLP and the adaptive-loss latents."""
+    """Everything Adam trains: the MLP, the adaptive-loss latents and the
+    warp field."""
 
     def __init__(self, mlp: nn.Module, adaptive_pix: nn.Module,
-                 adaptive_percep: Optional[nn.ModuleList] = None):
+                 adaptive_percep: Optional[nn.ModuleList] = None,
+                 adaptive_style: Optional[nn.ModuleList] = None,
+                 warp: Optional[WarpField] = None):
         super().__init__()
         self.mlp = mlp
         self.adaptive_pix = adaptive_pix
         self.adaptive_percep = adaptive_percep
+        self.adaptive_style = adaptive_style
+        self.warp = warp
 
 
 @dataclass
@@ -73,19 +96,37 @@ def make_schedule(cfg) -> Callable[[int], float]:
 
 
 def init_fit_state(cfg, model: nn.Module, percep: Optional[LPIPS],
-                   device: torch.device) -> FitState:
+                   device: torch.device,
+                   style: Optional[StyleLoss] = None) -> FitState:
+    """The warp field's weights come from a generator seeded with
+    cfg.seed + 2 (the bands take cfg.seed, the batches cfg.seed + 1)."""
     adaptive_percep = percep.init_adaptive() \
         if percep is not None and cfg.use_adaptive_perceptual_loss else None
-    params = FitParams(model, adaptive_init(3), adaptive_percep).to(device)
+    adaptive_style = style.init_adaptive() if style is not None and \
+        getattr(cfg, 'use_adaptive_style_loss', False) else None
+    warp = make_warp(cfg, torch.Generator().manual_seed(cfg.seed + 2))
+    params = FitParams(model, adaptive_init(3), adaptive_percep,
+                       adaptive_style, warp).to(device)
     opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
                            betas=(0.9, 0.999), eps=1e-8)
     return FitState(params, opt, 0)
 
 
+def embed_coords(params: FitParams, embedder, coords: torch.Tensor
+                 ) -> torch.Tensor:
+    """The embedding of f32 (N, 2) coordinates, warped first when the
+    params carry a warp field (npp_tpu/models/trainer.py:76-95)."""
+    if params.warp is not None:
+        coords = warp_coords(params.warp, coords, embedder.res)
+    return embedder.embed(coords)
+
+
 def build_loss_fn(cfg, percep: Optional[LPIPS],
                   contextual: Optional[ContextualLoss], patch_num: int,
                   patch_size: int,
-                  inject: Optional[Tuple[torch.Tensor, PatchBatch]] = None):
+                  inject: Optional[Tuple[torch.Tensor, PatchBatch]] = None,
+                  style: Optional[StyleLoss] = None,
+                  task: TaskSpec = COMPLETION_TASK):
     """Returns loss_fn(params, embedder, consts, gen) -> (loss, metrics).
 
     inject: a fixed (pixel indices (N_rand,), PatchBatch) used instead of
@@ -94,6 +135,8 @@ def build_loss_fn(cfg, percep: Optional[LPIPS],
     n_rand = cfg.N_rand
     use_cx = cfg.use_contextual_loss and contextual is not None
     use_perc = cfg.use_perceptual_loss and percep is not None
+    use_style = task.use_style and getattr(cfg, 'use_style_loss', False) \
+        and style is not None
 
     def loss_fn(params: FitParams, embedder, consts: FitConsts,
                 gen: Optional[torch.Generator]):
@@ -115,7 +158,8 @@ def build_loss_fn(cfg, percep: Optional[LPIPS],
 
         # ---- one MLP forward over pixels + patch pixels
         all_coords = torch.cat([pix_coords, batch.fake_coords.reshape(-1, 2)], 0)
-        raw = params.mlp(embedder.embed(all_coords.to(torch.float32)))
+        raw = params.mlp(embed_coords(params, embedder,
+                                      all_coords.to(torch.float32)))
         pred = render_activation(raw, cfg.normalize_type)
         pred_pix = pred[:n_rand]
         pred_patch = pred[n_rand:].reshape(patch_num, patch_size, patch_size, 3)
@@ -174,6 +218,15 @@ def build_loss_fn(cfg, percep: Optional[LPIPS],
                 perc = torch.zeros((), device=dev)
             metrics['perceptual'] = perc.detach()
 
+        if use_style:
+            # (reference: NPP_remapping/train.py:255-262), the comp-paste
+            # on 'val' batches as for CX
+            st = style(cx_pred * real_mask, real_rgb * real_mask,
+                       weight=weight, adaptive=params.adaptive_style,
+                       valid=valid)
+            loss = loss + st * cfg.style_weight
+            metrics['style'] = st.detach()
+
         metrics['source'] = torch.tensor(float(batch.source))
         return loss, metrics
 
@@ -201,12 +254,14 @@ def fit_step(state: FitState, loss_fn, embedder, consts: FitConsts,
 def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
     """The dtype of the per-block canvas table, or None to embed on the fly
     through K1 (npp_tpu/models/trainer.py:293-312): cfg.embed_table names
-    it; no table for tiny blocks, or above cfg.embed_table_max_mb, unless
+    it; no table for tiny blocks, with the warp field (its coordinates are
+    not integers), or above cfg.embed_table_max_mb, unless
     cfg.embed_table_degrade lets a bf16 table stand in for an f32 one too
     large."""
     dtype = {'float32': torch.float32,
              'bfloat16': torch.bfloat16}.get(cfg.embed_table)
-    if dtype is None or block < 8 or not isinstance(embedder, TaskEmbedder):
+    if dtype is None or block < 8 or not isinstance(embedder, TaskEmbedder) \
+            or getattr(cfg, 'warp_field', False):
         return None
     h, w = embedder.res
     mb = int(h) * int(w) * embedder.out_dim * dtype.itemsize / 1e6
@@ -219,11 +274,14 @@ def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
 
 
 def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
-                   patch_num: int, patch_size: int, block: int):
+                   patch_num: int, patch_size: int, block: int,
+                   style: Optional[StyleLoss] = None,
+                   task: TaskSpec = COMPLETION_TASK):
     """run_block(state, gen) -> last step's metrics, after `block` steps.
     With cfg.embed_table the canvas embedding is built once per block. The
     steps run under cfg.matmul_precision (device.py::matmul_precision)."""
-    loss_fn = build_loss_fn(cfg, percep, contextual, patch_num, patch_size)
+    loss_fn = build_loss_fn(cfg, percep, contextual, patch_num, patch_size,
+                            style=style, task=task)
     schedule = make_schedule(cfg)
     dtype = table_dtype(cfg, embedder, block)
 
@@ -254,7 +312,8 @@ def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
                                 torch.arange(w, device=dev), indexing='ij')
         coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
         with matmul_precision(cfg.matmul_precision):
-            out = [render_activation(params.mlp(embedder.embed(c)),
+            out = [render_activation(params.mlp(embed_coords(params,
+                                                             embedder, c)),
                                      cfg.normalize_type)
                    for c in coords.split(chunk)]
         return torch.cat(out, 0).reshape(h, w, 3)

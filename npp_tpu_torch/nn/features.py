@@ -21,6 +21,9 @@ VGG16_BLOCKS: Tuple[Tuple[int, int], ...] = ((2, 64), (2, 128), (3, 256), (3, 51
 VGG19_BLOCKS: Tuple[Tuple[int, int], ...] = ((2, 64), (2, 128), (4, 256), (4, 512), (4, 512))
 
 VGG16_LPIPS_TAPS = ('relu1_2', 'relu2_2', 'relu3_3', 'relu4_3', 'relu5_3')
+# the style loss's taps: after the first three maxpools (reference:
+# models/style_loss.py:11-14)
+VGG16_STYLE_TAPS = ('pool1', 'pool2', 'pool3')
 VGG19_CX_TAP = 'relu3_4'
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)

@@ -7,8 +7,10 @@ JAX arrays, e.g. with a tree-map of np.asarray) and never imports JAX:
    {'kernel': (n_cand, in, out), 'bias': (n_cand, out)}) -> the same
    tensors under StackedLinear's 'kernel' and 'bias';
  - flax Conv kernels HWIO -> OIHW;
- - AdaptiveLossParams latents (1, C), one or a tuple of them, or stacked
-   (n_cand, 1, C);
+ - AdaptiveLossParams latents (1, C), one or a tuple of them (the LPIPS
+   layers', the style layers'), or stacked (n_cand, 1, C);
+ - the warp field's flax Dense tree (dense0.., out) -> WarpField's
+   nn.Linear state_dict;
  - the embedder's freq_bands, angles and periods.
 """
 from __future__ import annotations
@@ -59,9 +61,10 @@ def latents_state_dict(lat: Any) -> Dict[str, torch.Tensor]:
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     """Map the JAX side's fit parameters and embedder onto the port's.
 
-    tree keys (each optional): 'mlp' (flax Dense tree), 'adaptive_pix'
-    (latents), 'adaptive_percep' (sequence of latents), 'convs' ({name:
-    HWIO kernel}), 'embedder' ({'freq_bands', 'angles', 'periods'}).
+    tree keys (each optional): 'mlp' and 'warp' (flax Dense trees),
+    'adaptive_pix' (latents), 'adaptive_percep' and 'adaptive_style'
+    (sequences of latents), 'convs' ({name: HWIO kernel}), 'embedder'
+    ({'freq_bands', 'angles', 'periods'}).
     Returns the same keys holding state_dicts / tensors: 'mlp' and the
     latents load with `load_state_dict`, 'convs' are OIHW tensors and
     'embedder' holds tensors for the TaskEmbedder fields."""
@@ -70,11 +73,13 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
         out['mlp'] = dense_state_dict(tree['mlp'])
     if 'adaptive_pix' in tree:
         out['adaptive_pix'] = latents_state_dict(tree['adaptive_pix'])
-    if 'adaptive_percep' in tree:
-        lats: Sequence = tree['adaptive_percep']
-        out['adaptive_percep'] = {
-            f'{i}.{k}': v for i, lat in enumerate(lats)
-            for k, v in latents_state_dict(lat).items()}
+    if 'warp' in tree:
+        out['warp'] = dense_state_dict(tree['warp'])
+    for key in ('adaptive_percep', 'adaptive_style'):
+        if key in tree:
+            lats: Sequence = tree[key]
+            out[key] = {f'{i}.{k}': v for i, lat in enumerate(lats)
+                        for k, v in latents_state_dict(lat).items()}
     if 'convs' in tree:
         out['convs'] = {k: conv_hwio_to_oihw(v) for k, v in tree['convs'].items()}
     if 'embedder' in tree:

@@ -4,17 +4,24 @@ A copy of `bench.py::_synthetic_data` (bench.py:47-68): a 384x512
 near-periodic image with an 80x100 hole and three detected lattices, so the
 main path runs at the reference's default shapes (patch size 160, 1386
 embedding channels) on any machine. `synthetic_search_data` gives the same
-image and masks without the lattices, for the periodicity search.
+image and masks without the lattices, for the periodicity search, and
+`synthetic_remap_data` the image without its hole, blurred inside an
+ellipse, with its lattices, for the remapping task.
 """
 from __future__ import annotations
 
 import numpy as np
+import scipy.ndimage as ndimage
 
 from ..models.loaders import TaskData
 
 H, W = 384, 512
 PATCH_SIZE = 160
 TOPK = 3
+SHIFTS = [[[56.0, 0.0], [0.0, 48.0]]] * TOPK
+ANGLES = [[90.0, 180.0]] * TOPK
+PERIODS = [[48.0, 56.0], [24.0, 28.0], [96.0, 112.0]]
+BLUR_SIGMA = 2.5
 
 
 def _image_and_mask(seed: int, h: int, w: int):
@@ -39,13 +46,10 @@ def synthetic_data(seed: int = 0, h: int = H, w: int = W) -> TaskData:
     valid = np.ones((h, w, 1))
     train = np.stack(np.nonzero((mask * valid)[..., 0]), 1)
     val = np.stack(np.nonzero(((1 - mask) * valid)[..., 0]), 1)
-    shifts = [[[56.0, 0.0], [0.0, 48.0]]] * TOPK
-    angles = [[90.0, 180.0]] * TOPK
-    periods = [[48.0, 56.0], [24.0, 28.0], [96.0, 112.0]]
     return TaskData(img=img, masked_img=img * mask, mask=mask,
                     valid_mask=valid, i_train=train, i_val=val,
-                    selected_shifts=shifts, selected_angles=angles,
-                    selected_periods=periods, patch_size=PATCH_SIZE)
+                    selected_shifts=SHIFTS, selected_angles=ANGLES,
+                    selected_periods=PERIODS, patch_size=PATCH_SIZE)
 
 
 def synthetic_search_data(seed: int = 0, h: int = H, w: int = W) -> dict:
@@ -56,3 +60,27 @@ def synthetic_search_data(seed: int = 0, h: int = H, w: int = W) -> dict:
     img, mask = _image_and_mask(seed, h, w)
     return {'masked_img': img * mask, 'gt_img': img, 'unknown_mask': mask,
             'valid_mask': np.ones((h, w, 1))}
+
+
+def synthetic_remap_data(seed: int = 0, h: int = H, w: int = W) -> dict:
+    """The flagship image (no hole) Gaussian-blurred (scipy, sigma 2.5)
+    inside an ellipse, the shape of scripts/eval_remapping.py:33-58 with
+    its radii scaled from that script's 256x320 canvas to (h, w), as
+    `models/loaders.py::remapping_data` reads it: 'gt_img', 'valid_mask'
+    and the three lattices ('selected_shifts', 'selected_angles',
+    'selected_periods'); also 'sharp' (the image before the blur) and
+    'blur_region' (the ellipse, (H, W) bool)."""
+    sharp, _ = _image_and_mask(seed, h, w)
+    rng = np.random.RandomState(seed + 1)
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    cy, cx = rng.randint(h // 3, 2 * h // 3), rng.randint(w // 3, 2 * w // 3)
+    ry = rng.randint(50, 70) * h / 256.0
+    rx = rng.randint(60, 85) * w / 320.0
+    region = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+    blurred = np.stack([ndimage.gaussian_filter(sharp[..., c], BLUR_SIGMA)
+                        for c in range(3)], -1)
+    img = np.where(region[..., None], blurred, sharp)
+    return {'gt_img': img, 'valid_mask': np.ones((h, w, 1)),
+            'selected_shifts': SHIFTS, 'selected_angles': ANGLES,
+            'selected_periods': PERIODS, 'sharp': sharp,
+            'blur_region': region}

@@ -2,13 +2,18 @@
 
     python3 scripts/profile_torch_fit.py [--blocks 2]
                                          [--matmul_precision bfloat16]
-                                         [--out FILE]
+                                         [--task completion|remapping]
+                                         [--warp_field] [--out FILE]
 
 Builds the main path's fit (default CompletionConfig widths and
 matmul_precision, or the one given: 'bfloat16' runs the steps' f32 matmuls
 and convolutions in TF32, 'float32' in full f32; the 384x512
 synthetic example of npp_tpu_torch/utils/synthetic.py, blocks of 10 steps
-with the per-block embedding table), runs one block to warm up (kernel
+with the per-block embedding table), or with --task remapping the
+remapping fit (default RemappingConfig widths, the synthetic remapping
+example with its blur map on the card), or with --warp_field the
+completion with the warp field (K1 and its backward on the fly every
+step), runs one block to warm up (kernel
 builds, cuDNN's algorithm choice), then profiles `--blocks` more blocks with
 torch.profiler. Prints, as one JSON line: the wall ms per step, the device
 busy share (kernel time over wall time), the device time per step by group
@@ -25,9 +30,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GROUPS = (  # first match wins; names as the profiler reports kernels
     ('K1 periodic_embed', ('periodic_embed_kernel',)),
+    ('K1 bwd', ('periodic_embed_bwd_kernel',)),
     ('K2 bias_snake', ('snake_fwd_kernel', 'snake_bwd_kernel')),
     ('K4 robust_rho', ('rho_fwd_group_kernel', 'rho_bwd_kernel',
-                       'rho_bwd_finish')),
+                       'rho_bwd_finish', 'rho_fwd_wide_finish',
+                       'rho_bwd_wide_kernel')),
     # cuDNN's tensor-core (TF32) convolutions add layout transforms, its
     # FFT convolutions fft2d_* kernels
     ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fprop', 'dgrad',
@@ -51,6 +58,9 @@ def main(argv=None):
     ap.add_argument('--matmul_precision', default=None,
                     help="the fit's matmul_precision (default: "
                          "CompletionConfig's)")
+    ap.add_argument('--task', default='completion',
+                    choices=('completion', 'remapping'))
+    ap.add_argument('--warp_field', action='store_true')
     ap.add_argument('--out', default=os.path.join(ROOT, 'chiprun_out',
                                                   'profile_torch_fit.json'))
     args = ap.parse_args(argv)
@@ -60,24 +70,35 @@ def main(argv=None):
         sys.exit('profile_torch_fit: needs a CUDA card')
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
-    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.config import (CompletionConfig, RemappingConfig,
+                                      replace)
     from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.models.loaders import remapping_data
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
-    from npp_tpu_torch.models.trainer import init_fit_state, make_fit_block
-    from npp_tpu_torch.utils.synthetic import synthetic_data
+    from npp_tpu_torch.models.remapping import REMAPPING_TASK
+    from npp_tpu_torch.models.trainer import (COMPLETION_TASK, init_fit_state,
+                                              make_fit_block)
+    from npp_tpu_torch.utils.synthetic import (synthetic_data,
+                                               synthetic_remap_data)
 
     dev = torch.device('cuda')
-    cfg = CompletionConfig()
+    if args.task == 'remapping':
+        cfg, task = RemappingConfig(), REMAPPING_TASK
+        with matmul_precision('float32'):
+            data = remapping_data(synthetic_remap_data(0), cfg, dev)
+    else:
+        cfg, task = CompletionConfig(), COMPLETION_TASK
+        data = synthetic_data(0)
+    cfg = replace(cfg, warp_field=args.warp_field)
     if args.matmul_precision:
         cfg = replace(cfg, matmul_precision=args.matmul_precision)
-    data = synthetic_data(0)
-    comps = build_components(cfg, data, dev)
-    state = init_fit_state(cfg, comps.model, comps.percep, dev)
-    consts = make_fit_consts(cfg, data, data.patch_size, dev)
+    comps = build_components(cfg, data, dev, task)
+    state = init_fit_state(cfg, comps.model, comps.percep, dev, comps.style)
+    consts = make_fit_consts(cfg, data, data.patch_size, dev, task)
     block = 10
     run_block = make_fit_block(cfg, comps.embedder, consts, comps.percep,
                                comps.contextual, cfg.patch_num,
-                               data.patch_size, block)
+                               data.patch_size, block, comps.style, task)
     gen = torch.Generator().manual_seed(cfg.seed + 1)
     # outside the steps (which set cfg's precision), full f32 as in a fit
     with matmul_precision('float32'):
@@ -114,6 +135,8 @@ def main(argv=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
     out = {
         'device': torch.cuda.get_device_name(0), 'steps': steps,
+        'task': task.name, 'warp_field': cfg.warp_field,
+        'patch_size': data.patch_size,
         'matmul_precision': cfg.matmul_precision,
         'wall_ms_per_step': wall_ms / steps,
         'device_ms_per_step': device_ms / steps,

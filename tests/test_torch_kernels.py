@@ -183,6 +183,31 @@ def test_k1_bf16_matches_plain_on_the_card():
     assert bool(((got - want).abs() <= ulp + 1e-5).all())
 
 
+@pytest.mark.cuda
+def test_k1_backward_matches_plain_on_the_card():
+    """The coordinate gradient of the f32 embedding at non-integer
+    coordinates, with and without Fourier bands: K1's backward kernel
+    (one launch per backward) against autograd through the plain version,
+    both held to float64 (the phases are rounded in f32 in both)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(1)
+    for bands in (True, False):
+        coords, angles, periods, bnd, *cfg = _embed_args(dev, n=5000)
+        coords = coords + torch.rand(coords.shape, generator=gen).to(dev)
+        consts = (angles, periods) + ((bnd,) if bands else ())
+
+        def call(f):
+            return lambda c, a, p, *b: f(c, a, p, b[0] if b else None, *cfg)
+        n_out = call(periodic_embed.periodic_embed_plain)(coords,
+                                                          *consts).shape[1]
+        g = torch.randn(5000, n_out, generator=gen).to(dev)
+        before = launch_counts()['periodic_embed_bwd']
+        _assert_no_worse_than_plain(call(periodic_embed.periodic_embed),
+                                    call(periodic_embed.periodic_embed_plain),
+                                    (coords,), consts, g)
+        assert launch_counts()['periodic_embed_bwd'] == before + 1
+
+
 def _assert_no_worse_than_plain(fn, plain, inputs, consts, g):
     """Run the kernel's wrapper, its plain version in f32 and the plain
     version in float64 on the same inputs, forward and backward (fn may
@@ -244,7 +269,11 @@ K4_SHAPES = [(8192, 3), (153600, 64), (38400, 128), (9600, 256),
              (2400, 512), (600, 512)]
 # the search's lockstep fit: N_rand 2048 rows, 9 candidates x 3 channels
 K4_SEARCH = (2048, 27)
-K4_CASES = [[shape] for shape in K4_SHAPES] + [K4_SHAPES[1:]] + [[K4_SEARCH]]
+# the remapping's adaptive style loss: the three layers' flattened Gram
+# residuals over P*K = 6 patches (the wide-row paths), alone and grouped
+K4_STYLE = [(6, 4096), (6, 16384), (6, 65536)]
+K4_CASES = [[shape] for shape in K4_SHAPES] + [K4_SHAPES[1:]] + \
+    [[K4_SEARCH]] + [[K4_STYLE[-1]], K4_STYLE]
 
 
 def _group(n, fn):

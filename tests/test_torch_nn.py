@@ -200,11 +200,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_options_raise():
+    """comp_seam='residual', checkpoints and LPIPS-alex still raise with a
+    pointer to ROADMAP.md; the warp field, the held-out blocks, the 'best'
+    snapshot and the style loss are ported and pass check_slice."""
+    from npp_tpu_torch.losses.lpips import LPIPS
     from npp_tpu_torch.models.pipeline import check_slice, fit_image
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        check_slice(TC.replace(TC.CompletionConfig(), comp_seam='residual'))
     for kw in ({'warp_field': True}, {'comp_heldout': 2},
-               {'comp_snapshot': 'best'}, {'comp_seam': 'residual'}):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            check_slice(TC.replace(TC.CompletionConfig(), **kw))
+               {'comp_snapshot': 'best'}):
+        check_slice(TC.replace(TC.CompletionConfig(), **kw))
+    check_slice(TC.RemappingConfig())
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        LPIPS(torch.device('cpu'), net='alex')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         fit_image(TC.CompletionConfig(), None, device='cpu',
                   checkpoint_dir='ckpt')
