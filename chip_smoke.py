@@ -7,27 +7,34 @@ Phases, in order; any failure exits non-zero:
  1. device: the card's name and power limit;
  2. build: K1 (csrc/periodic_embed.cu, forward and backward) and K4's
     forward and backward (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu),
-    one nvcc each, started together, printing `-Xptxas -v`;
+    one nvcc each, printing `-Xptxas -v`, and the segmentation's graph cut
+    (csrc/graphcut.cpp, a host library) with g++, all started together;
  3. kernels, with TF32 off: each kernel's wrapper against its plain
     PyTorch version on the card at the main paths' shapes (K1 in f32 and
-    bf16, and its backward in the coordinates at 59,392 rows; K2 forward
-    and backward, and batched at the search's 9 x 2048 x 256 and 9 x 2048
-    x 128; K4 at the search's 2048 x 27 both ways with every alpha; K4's
-    forward at the pixel loss's and the evaluation's shapes and as one
-    grouped launch over the five LPIPS layers, with alpha spread and at
-    exactly 0.001, 1.0 and 1.999, and within 1e-6 of float64; K4's
-    backward at each shape; K4's wide rows at the style loss's 6 x 4,096,
-    6 x 16,384 and 6 x 65,536, the forward as one grouped launch, both
-    ways at every alpha), timed by CUDA-graph replay (device time) and by
-    eager launches; then one completion step, one with the warp field and
-    one remapping step, each with injected inputs and
-    matmul_precision='float32' on the card against the same step on the
-    CPU (plain versions); the blur map of the remapping example with its
-    eigenvalues on the card against the CPU;
+    bf16, and its backward in the coordinates at 59,392 rows, and in f32 at
+    the segmentation canvas's 81,920 rows; K2 forward and backward, at the
+    segmentation step's 16,384 x 512, and batched at the search's 9 x 2048
+    x 256 and 9 x 2048 x 128; K4 at the search's 2048 x 27 both ways with
+    every alpha; K4's forward at the pixel loss's and the evaluation's
+    shapes and as one grouped launch over the five LPIPS layers, with
+    alpha spread and at exactly 0.001, 1.0 and 1.999, and within 1e-6 of
+    float64; K4's backward at each shape; K4's wide rows at the style
+    loss's 6 x 4,096, 6 x 16,384 and 6 x 65,536, the forward as one grouped
+    launch, both ways at every alpha), timed by CUDA-graph replay (device
+    time) and by eager launches; then one completion step, one with the
+    warp field, one remapping step and one segmentation step, each with
+    injected inputs and matmul_precision='float32' on the card against the
+    same step on the CPU (plain versions); the blur map of the remapping
+    example with its eigenvalues on the card against the CPU; SLIC of the
+    segmentation example on the card twice (the same labels) and against
+    the CPU (>= 99.9% of the labels);
  4. TF32: the gradients of the CX, LPIPS-robust and adaptive style terms,
     of one default completion step and of one remapping step under the
     default matmul_precision ('bfloat16': TF32 on) against 'float32', at
-    the flagship patch scales; cosine >= 0.99;
+    the flagship patch scales, and of the LPIPS-robust and style terms
+    with the feature_dtype='bfloat16' towers that build_components makes
+    (their activations must be bf16) against the f32 towers in full f32;
+    cosine >= 0.99, and below 1 for the bf16 towers;
  5. main path: `run_completion` on the 384x512 synthetic example at the
     default CompletionConfig (TF32 in the steps and the render), 21
     iterations (two blocks of 10 steps, evals at 10 and 20, the final
@@ -54,9 +61,17 @@ Phases, in order; any failure exits non-zero:
 11. search-chained path: the completion fit of phase 5 for 11 iterations
     on the search's top-3 lattices (the patch size they give), counted the
     same way;
-12. one JSON line of kernels (with the search's, the remapping's and the
-    warp's shapes and launches), the paths' walls and metrics, the
-    nvidia-smi line, and the final {"ok": true, "device": {...}} line.
+12. segmentation path: `run_segmentation` on the 256x320 synthetic
+    segmentation example (utils/synthetic.py::synthetic_segment_data: the
+    coarse SLIC on the card + GMM + graph cut, the fit through K1's table,
+    K2 and K4, the spatial LPIPS-alex refinement) at the default
+    SegmentationConfig widths, 21 iterations with refinements at 10 and
+    20, counted the same way; its wall, peak memory and the IoU of the
+    coarse and refined masks against the example's ground truth;
+13. one JSON line of kernels (with the search's, the remapping's, the
+    warp's and the segmentation's shapes and launches), the paths' walls
+    and metrics, the nvidia-smi line, and the final {"ok": true,
+    "device": {...}} line.
 """
 import concurrent.futures
 import json
@@ -174,15 +189,21 @@ def phase_device():
 
 
 CUDA_SOURCES = ('periodic_embed', 'robust_rho_fwd', 'robust_rho_bwd')
+HOST_SOURCES = ('graphcut',)
 
 
 def phase_build():
-    from npp_tpu_torch.kernels.build import build_library
+    """One nvcc per CUDA source and g++ for the graph cut's host library,
+    all started together."""
+    from npp_tpu_torch.kernels.build import build_host_library, build_library
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
-        list(pool.map(lambda n: build_library(n, ptxas_verbose=True),
-                      CUDA_SOURCES))
-    log(f'built {", ".join(f"csrc/{n}.cu" for n in CUDA_SOURCES)} in '
+    jobs = [lambda n=n: build_library(n, ptxas_verbose=True)
+            for n in CUDA_SOURCES] + \
+        [lambda n=n: build_host_library(n) for n in HOST_SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
+        list(pool.map(lambda job: job(), jobs))
+    log(f'built {", ".join(f"csrc/{n}.cu" for n in CUDA_SOURCES)} and '
+        f'{", ".join(f"csrc/{n}.cpp" for n in HOST_SOURCES)} in '
         f'{time.time() - t0:.1f} s')
 
 
@@ -707,6 +728,16 @@ def cosine(a, b):
     return float(torch.dot(a, b) / (a.norm() * b.norm()).clamp(min=1e-300))
 
 
+def bf16_tower(loss):
+    """The loss, after checking that its tower carries bf16 activations
+    (feature_dtype='bfloat16' is not ignored)."""
+    import torch
+    if loss.tower.dtype != torch.bfloat16:
+        fail(f'feature_dtype=\'bfloat16\' built a {loss.tower.dtype} '
+             f'tower for {type(loss).__name__}')
+    return loss
+
+
 def check_tf32_gradients():
     """The fit's default matmul_precision ('bfloat16': TF32 on the card)
     against 'float32' (TF32 off), on one card and the same inputs, at the
@@ -719,7 +750,7 @@ def check_tf32_gradients():
     gray in the hole, plus N(0, 0.05^2) noise: a fit part of the way. Fails
     below TF32_COSINE_BAR."""
     import torch
-    from npp_tpu_torch.config import CompletionConfig
+    from npp_tpu_torch.config import CompletionConfig, replace
     from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.sampler import SOURCE_SAME, sample_patches
@@ -775,6 +806,21 @@ def check_tf32_gradients():
             loss.backward()
         grads.setdefault('mlp_step', []).append(torch.cat(
             [q.grad.flatten() for q in state.params.mlp.parameters()]))
+    # feature_dtype='bfloat16': the LPIPS tower that build_components makes
+    # for it, bf16 activations under the default precision, against the
+    # f32 tower in full f32
+    percep_bf16 = bf16_tower(build_components(
+        replace(cfg, feature_dtype='bfloat16'), data, dev).percep)
+    for prec, lp in ((cfg.matmul_precision, percep_bf16),
+                     ('float32', comps.percep)):
+        with matmul_precision(prec):
+            pred = pred0.clone().requires_grad_()
+            term = torch.sum(lp(
+                per_slot(pred) * real_mask, per_slot(fake_rgb) * real_mask,
+                use_robust=True, adaptive=state.params.adaptive_percep,
+                normalize=True))
+            grads.setdefault('lpips_robust_bf16_towers', []).append(
+                torch.autograd.grad(term, pred)[0])
     res = {name: cosine(*g) for name, g in grads.items()}
     res.update(tf32_style_cosines())
     log(f'TF32 on ({cfg.matmul_precision!r}) against off (\'float32\'), '
@@ -783,6 +829,10 @@ def check_tf32_gradients():
     if low:
         fail(f'TF32 turns these gradients by more than a cosine of '
              f'{TF32_COSINE_BAR}: {low}')
+    same = [n for n, v in res.items() if n.endswith('_bf16_towers')
+            and not v < 1.0]
+    if same:
+        fail(f'bf16 towers give the f32 towers\' gradient exactly: {same}')
     return res
 
 
@@ -806,7 +856,7 @@ def tf32_style_cosines():
     known-pixel paste plus N(0, 0.05^2) noise, as for CX), and one whole
     remapping step's gradient in the MLP's parameters."""
     import torch
-    from npp_tpu_torch.config import RemappingConfig
+    from npp_tpu_torch.config import RemappingConfig, replace
     from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.remapping import REMAPPING_TASK
@@ -849,6 +899,21 @@ def tf32_style_cosines():
             loss.backward()
         grads.setdefault('remap_mlp_step', []).append(torch.cat(
             [q.grad.flatten() for q in state.params.mlp.parameters()]))
+    # feature_dtype='bfloat16': the style tower that build_components makes
+    # for it (tower, Grams and residual in bf16) under the default
+    # precision, against the f32 tower in full f32
+    style_bf16 = bf16_tower(build_components(
+        replace(cfg, feature_dtype='bfloat16'), data, dev, task).style)
+    for prec, st in ((cfg.matmul_precision, style_bf16),
+                     ('float32', comps.style)):
+        with matmul_precision(prec):
+            pred = pred0.clone().requires_grad_()
+            term = st(pred[:, None].expand(p, k, s, s, 3).reshape(
+                pk, s, s, 3) * real_mask, real_rgb * real_mask,
+                adaptive=state.params.adaptive_style,
+                valid=batch.valid.reshape(pk))
+            grads.setdefault('style_bf16_towers', []).append(
+                torch.autograd.grad(term, pred)[0])
     return {name: cosine(*g) for name, g in grads.items()}
 
 
@@ -1239,6 +1304,181 @@ def drive_warp():
                           val_psnr=final['val_psnr'])
 
 
+# the segmentation path: the 256x320 synthetic example's canvas (K1's
+# table), its step rows (N_rand 8192 + 2 fake 64^2 patches) at width 512
+SEG_K1_ROWS = 256 * 320
+SEG_K2 = (8192 + 2 * 64 * 64, 512)
+SEG_K2_NAMES = tuple(f'bias_snake_{k}[{SEG_K2[0]}x{SEG_K2[1]}]'
+                     for k in ('fwd', 'bwd'))
+
+
+def check_k1_seg(gen):
+    """K1 in f32 at the segmentation canvas's table (256*320 rows, the
+    example's three lattices, 1386 channels), judged against the plain
+    version in f32 and float64."""
+    import torch
+    from npp_tpu_torch.kernels.periodic_embed import (periodic_embed,
+                                                      periodic_embed_plain)
+    from npp_tpu_torch.utils.synthetic import synthetic_segment_data
+    h, w = 256, 320
+    arr = synthetic_segment_data(0, h, w)
+    dev = torch.device('cuda')
+    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing='ij')
+    coords = torch.stack([ys, xs], -1).reshape(-1, 2).float()
+    args = (coords, torch.tensor(arr['selected_angles'], device=dev).float(),
+            torch.tensor(arr['selected_periods'], device=dev).float(),
+            (torch.randn(10, generator=gen) * 10).to(dev), (1.0,),
+            (0.0, -1.0, 1.0, 0.5, -0.5), (0.0,), (h, w))
+    got = periodic_embed(*args)
+    want = periodic_embed_plain(*args)
+    want64 = periodic_embed_plain(*[a.double() if torch.is_tensor(a) else a
+                                    for a in args])
+    torch.cuda.synchronize()
+    if got.shape != (SEG_K1_ROWS, 1386):
+        fail(f'K1 output {tuple(got.shape)} at the segmentation canvas')
+    err = judge([(got, want, want64)])
+    del got, want, want64
+    n_out = SEG_K1_ROWS * 1386
+    b_ms, b_by = bound_ms(coords.numel() * 4 + n_out * 4, n_out * 20)
+    return [dict(
+        name=f'periodic_embed[{SEG_K1_ROWS}x1386]', route='cuda',
+        source='npp_tpu_torch/csrc/periodic_embed.cu',
+        replaces='npp_tpu/nn/embedder.py:149 (TaskEmbedder.embed, XLA-fused; '
+                 'no pl.pallas_call in the repo)',
+        shape=[SEG_K1_ROWS, 1386], dtype='float32', **err,
+        ms=time_ms(lambda: periodic_embed(*args)),
+        eager_ms=eager_ms(lambda: periodic_embed(*args)),
+        plain_ms=time_ms(lambda: periodic_embed_plain(*args), iters=5),
+        bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by, library_ms=None)]
+
+
+def seg_names():
+    """The kernel entries of the segmentation path (named like its launch
+    counts)."""
+    return {f'periodic_embed[{SEG_K1_ROWS}x1386]', *SEG_K2_NAMES}
+
+
+def check_slic():
+    """SLIC of the 256x320 segmentation example (the loader's sp_size 20,
+    regularisation 0.1) with its local k-means on the card, twice, and on
+    the CPU: the two card runs give the same labels, and the card's agree
+    with the CPU's on at least 99.9% of the pixels (f32 distance ties may
+    fall either way)."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.segmentation.slic import slic_segment
+    from npp_tpu_torch.utils.synthetic import synthetic_segment_data
+    img = np.uint8(synthetic_segment_data(0)['gt_img'] * 255)
+    runs = {}
+    for name in ('cuda', 'cuda', 'cpu'):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        lab = slic_segment(img, sp_size=20, relative_compact=0.1,
+                           device=torch.device(name))
+        runs.setdefault(name, []).append((lab, time.time() - t0))
+    (a, t_a), (b, t_b) = runs['cuda']
+    cpu, t_cpu = runs['cpu'][0]
+    same = bool(np.array_equal(a, b))
+    agree = float((a == cpu).mean())
+    log(f'SLIC 256x320 on the card: {a.max()} superpixels, repeat run '
+        f'identical: {same}; agrees with the CPU on {agree:.6f} of pixels; '
+        f'{t_a:.3f} s (first), {t_b:.3f} s (second) on the card, '
+        f'{t_cpu:.3f} s on the CPU')
+    if not (same and agree >= 0.999):
+        fail('SLIC on the card is not deterministic or disagrees with the CPU')
+    return dict(identical_repeat=same, cpu_agreement=agree,
+                superpixels=int(a.max()), card_s=[t_a, t_b], cpu_s=t_cpu)
+
+
+def check_seg_step():
+    """One segmentation step (the blurred image as pixel source, period
+    mask x valid as the sampler's mask) on the 96x128 example's loader data
+    with patch 32, card against CPU in f32."""
+    import torch
+    from npp_tpu_torch.config import SegmentationConfig, replace
+    from npp_tpu_torch.models.loaders import segmentation_data
+    from npp_tpu_torch.models.segmentation import SEGMENTATION_TASK
+    from npp_tpu_torch.utils.synthetic import synthetic_segment_data
+    cfg = replace(SegmentationConfig(), netwidth=64, netdepth=6, N_rand=512,
+                  patch_num=1, num_real_patch_per_sample=2,
+                  matmul_precision='float32')
+    data = segmentation_data(synthetic_segment_data(0, 96, 128), cfg,
+                             torch.device('cpu'))
+    data.patch_size = 32
+    return check_step('segmentation step', cfg, data, SEGMENTATION_TASK,
+                      want=lambda b: float(b.valid.sum()) == 2)
+
+
+def iou(a, b):
+    import numpy as np
+    a, b = np.asarray(a, bool), np.asarray(b, bool)
+    u = (a | b).sum()
+    return float((a & b).sum() / u) if u else 1.0
+
+
+def drive_segment():
+    """run_segmentation on the 256x320 synthetic example at the default
+    SegmentationConfig widths, 21 iterations with refinements at 10 and
+    20, every launch count set to 0 just before and read just after. Fails
+    on non-finite losses or maps, missing refinements, or a kernel of the
+    path that never launched: K1 (the canvas table), K2 at the step's
+    16,384 x 512, K4's forward and backward at the pixel loss's 8,192 x 3.
+    Reports the IoU of the coarse and the refined non-periodic masks
+    against the example's ground truth."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import SegmentationConfig, replace
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.models.segmentation import run_segmentation
+    from npp_tpu_torch.utils.synthetic import synthetic_segment_data
+    cfg = replace(SegmentationConfig(), N_iters=21, i_testset=10, i_print=10)
+    arrays = synthetic_segment_data(0)
+    gt = arrays['gt_mask']
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    result, results, data = run_segmentation(cfg, save=False, device='cuda',
+                                             data=arrays)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    oh, ow = data.orig_shape
+    init = data.extra['non_period_mask'][:oh, :ow, 0] > 0
+    ious = {i: iou(r['non_period_mask'][..., 0] > 0, gt)
+            for i, r in sorted(results.items())}
+    for h in result.history:
+        log(f"segmentation path: block ending at iter {h['iter']}: loss "
+            f"{h['loss']:.6g} (contextual {h['contextual']:.6g}), "
+            f"{h['ms_per_step']:.2f} ms/step")
+    log(f'segmentation path: patch size {data.patch_size}; IoU against the '
+        f'ground truth: coarse init {iou(init, gt):.4f}, refined '
+        f'{ious} (by iteration); non-periodic fraction: gt '
+        f'{gt.mean():.4f}, init {init.mean():.4f}')
+    log(f'segmentation path: {wall:.1f} s wall (coarse mask and fit '
+        f'{result.wall_time_s:.1f} s fit); peak memory allocated '
+        f'{peak / 2**30:.2f} GiB; launches {launches}')
+    numbers = [h['loss'] for h in result.history] + \
+        [float(np.max(m)) for r in results.values()
+         for m in r['lpips_maps'] + [r['l1_img']]]
+    if not np.all(np.isfinite(numbers)):
+        fail(f'segmentation path: non-finite losses or maps: {numbers}')
+    if sorted(results) != [10, 20] or not 0 < init.mean() < 1:
+        fail(f'segmentation path: refinements at {sorted(results)}, init '
+             f'fraction {init.mean()}')
+    need = [*sorted(seg_names()), 'robust_rho_fwd[8192x3]',
+            'robust_rho_bwd[8192x3]']
+    missing = [k for k in need if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f'segmentation path: kernels never launched: {missing}')
+    return launches, dict(
+        ms_per_step=[h['ms_per_step'] for h in result.history],
+        iou_init=iou(init, gt), iou_refined=ious, wall_s=wall,
+        fit_wall_s=result.wall_time_s, peak_bytes=peak,
+        patch_size=data.patch_size)
+
+
 def main():
     name, smi = phase_device()
     import torch
@@ -1250,7 +1490,8 @@ def main():
             '(torch.backends.cuda.matmul.allow_tf32 = False, '
             'torch.backends.cudnn.allow_tf32 = False)')
         kernels = check_k1(gen) + check_k1_bwd(gen) + check_k2(gen) + \
-            check_k4(gen) + check_k4_wide(gen)
+            check_k4(gen) + check_k4_wide(gen) + check_k1_seg(gen) + \
+            k2_entries(gen, SEG_K2, SEG_K2_NAMES)
         for k in kernels:
             err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
                    f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
@@ -1268,8 +1509,10 @@ def main():
         bad = [k['name'] for k in kernels if not k['passed']]
         if bad:
             fail(f'kernels disagree with their plain versions: {bad}')
-        steps = dict(check_fit_step(), remapping=check_remap_step())
+        steps = dict(check_fit_step(), remapping=check_remap_step(),
+                     segmentation=check_seg_step())
         blur = check_blur_map()
+        slic = check_slic()
         det, i_train, img = check_search_detection()
         check_search_step(det, i_train, img)
     cosines = check_tf32_gradients()
@@ -1277,12 +1520,13 @@ def main():
     on_search = set(search_names())
     on_remap = {k['name'] for k in kernels if '[6x' in k['name']}
     on_warp = {'periodic_embed_bwd'}
+    on_seg = seg_names()
     log("main path and bf16-table path: matmul_precision='bfloat16' (the "
         "default), TF32 on in the steps and the render")
     main_launches, history, peak, _ = drive(
         'main path', [k['name'] for k in kernels
                       if k['name'] != bf16_name and k['name'] not in
-                      on_search | on_remap | on_warp],
+                      on_search | on_remap | on_warp | on_seg],
         N_iters=21)
     bf16_launches, bf16_history, _, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
@@ -1305,8 +1549,13 @@ def main():
                                 'bias_snake_bwd', 'robust_rho_fwd',
                                 'robust_rho_bwd'],
         data=chained, N_iters=11)
+    log("segmentation path: the default SegmentationConfig widths, TF32 in "
+        "the steps and the render, the refinement's spatial LPIPS-alex in "
+        "full f32")
+    seg_launches, seg = drive_segment()
     for k in kernels:
         k['launches'] = (bf16_launches if k['name'] == bf16_name else
+                         seg_launches if k['name'] in on_seg else
                          search_launches if k['name'] in on_search else
                          remap_launches if k['name'] in on_remap else
                          warp_launches if k['name'] in on_warp else
@@ -1327,6 +1576,7 @@ def main():
                               'peak_bytes': peak},
                       'remap': remap, 'heldout': heldout, 'warp': warp,
                       'blur_map': blur, 'steps_card_vs_cpu': steps,
+                      'segmentation': seg, 'slic': slic,
                       'search': search,
                       'search_chained': {
                           'patch_size': chained.patch_size,

@@ -4,15 +4,15 @@ Usage:
   python -m npp_tpu_torch.cli search --datadir D --outdir O [--device cpu] [overrides]
   python -m npp_tpu_torch.cli complete --datadir D --basedir B [--device cpu] [overrides]
   python -m npp_tpu_torch.cli remap --datadir D --basedir B [--device cpu] [overrides]
+  python -m npp_tpu_torch.cli segment --datadir D --basedir B [--device cpu] [overrides]
 
 `search` reads D's masked_img.png, gt_img.png, unknown_mask.png and
 valid_mask.png and writes O/<name>/config.odgt and its PNGs, which
-`complete --datadir O/<name>` reads; `remap` reads a record and its
-gt_img and valid_mask the same way. Any SearchConfig / CompletionConfig /
-RemappingConfig field can be overridden with --<field> <value>; booleans
-accept true/false. Runs on the card unless --device cpu is given. Reading
-and writing PNGs needs OpenCV. The segment command is not ported yet
-(ROADMAP.md).
+`complete --datadir O/<name>` reads; `remap` and `segment` read a
+record and its gt_img and valid_mask the same way. Any SearchConfig /
+CompletionConfig / RemappingConfig / SegmentationConfig field can be
+overridden with --<field> <value>; booleans accept true/false. Runs on the
+card unless --device cpu is given. Reading and writing PNGs needs OpenCV.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ import dataclasses
 import sys
 from typing import Type
 
-from .config import CompletionConfig, RemappingConfig, SearchConfig
+from .config import (CompletionConfig, RemappingConfig, SearchConfig,
+                     SegmentationConfig)
 
 
 def _parse_value(field: dataclasses.Field, raw: str):
@@ -82,8 +83,11 @@ def main(argv=None):
         print({k: odgt[k] for k in ('selected_angles', 'selected_periods',
                                     'distances')})
     elif cmd == 'segment':
-        raise NotImplementedError(
-            f'{cmd} is not ported to npp_tpu_torch yet (see ROADMAP.md)')
+        from .models.segmentation import run_segmentation
+        _, results, _ = run_segmentation(
+            build_config(SegmentationConfig, rest), device=device)
+        print({i: float(r['non_period_mask'].mean())
+               for i, r in results.items()})
     else:
         raise SystemExit(f'unknown command: {cmd}')
     return 0

@@ -44,8 +44,10 @@ class BaseConfig:
                                         # on the card for the names JAX maps
                                         # to DEFAULT/HIGH, full f32 for
                                         # 'float32'/'highest' (device.py)
-    feature_dtype: str = "float32"      # conv-tower activation dtype inside
-                                        # the fit losses; the port runs f32
+    feature_dtype: str = "float32"      # the LPIPS and style towers'
+                                        # activation dtype inside the fit
+                                        # losses ('bfloat16' or f32); the
+                                        # CX tower always runs f32
     canvas_multiple: int = 64           # pad images to this multiple (0 = off)
     canvas_override: Tuple[int, int] = ()  # ignored by the port
     compile_ahead: bool = True          # ignored by the port: nothing is
@@ -154,8 +156,8 @@ class SearchConfig(BaseConfig):
 
 @dataclass(frozen=True)
 class SegmentationConfig(FitConfig):
-    """reference: options/arg_config.py:151-225. Parsed only; segmentation
-    is not ported yet."""
+    """reference: options/arg_config.py:151-225, run by
+    models/segmentation.py::run_segmentation."""
 
     expname: str = "segmentation"
     use_perceptual_loss: bool = False     # store_true in reference (:190)

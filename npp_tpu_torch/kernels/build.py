@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exports plain C functions and is compiled by `nvcc`
 into `npp_tpu_torch/build/lib<name>-<hash>.so`, keyed by the source's hash so
 an edited source rebuilds. No PyTorch headers are included, which keeps a
 build to seconds. Triton's cache is pointed into the same build directory so
-nothing is written outside the checkout.
+nothing is written outside the checkout. A host library (`csrc/<name>.cpp`,
+the segmentation's graph cut) is compiled the same way by `g++`.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, 'build')
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC']
+GXX_CMD = ['g++', '-O2', '-shared', '-fPIC', '-std=c++17']
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -41,22 +43,33 @@ def build_library(name: str, ptxas_verbose: bool = False) -> str:
     """Compile csrc/<name>.cu unless an up-to-date build exists. Returns
     the library path. With ptxas_verbose, compiles even when cached and
     prints nvcc's `-Xptxas -v` report (registers, shared memory, spills)."""
-    src = os.path.join(CSRC_DIR, f'{name}.cu')
+    return _build(f'{name}.cu', [nvcc_path(), *NVCC_FLAGS],
+                  ['-Xptxas', '-v'] if ptxas_verbose else [], ptxas_verbose)
+
+
+def build_host_library(name: str) -> str:
+    """Compile the host library csrc/<name>.cpp with g++ unless an
+    up-to-date build exists; returns its path."""
+    return _build(f'{name}.cpp', GXX_CMD, [], False)
+
+
+def _build(src_name: str, cmd0, extra, force: bool) -> str:
+    src = os.path.join(CSRC_DIR, src_name)
+    name = os.path.splitext(src_name)[0]
     with open(src, 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode()
+        digest = hashlib.sha256(f.read() + ' '.join(cmd0).encode()
                                 ).hexdigest()[:16]
     out = os.path.join(BUILD_DIR, f'lib{name}-{digest}.so')
-    if os.path.exists(out) and not ptxas_verbose:
+    if os.path.exists(out) and not force:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{out}.tmp{os.getpid()}'
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(['-Xptxas', '-v'] if ptxas_verbose
-                                       else []), '-o', tmp, src]
+    cmd = [*cmd0, *extra, '-o', tmp, src]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed for {src}:\n{proc.stdout}\n'
+        raise RuntimeError(f'{cmd0[0]} failed for {src}:\n{proc.stdout}\n'
                            f'{proc.stderr}')
-    if ptxas_verbose:
+    if extra:
         print(proc.stdout + proc.stderr, flush=True)
     os.replace(tmp, out)
     return out

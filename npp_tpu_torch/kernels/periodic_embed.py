@@ -14,6 +14,7 @@ coordinate gradient by autograd).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional, Sequence, Tuple
@@ -22,8 +23,10 @@ import torch
 
 from .build import check_cuda, load_library
 
-LAUNCHES = {'periodic_embed': 0, 'periodic_embed_bf16': 0,
-            'periodic_embed_bwd': 0}
+# the forward counts by output shape ('periodic_embed[81920x1386]'), which
+# kernels.launch_counts() also sums under the name
+LAUNCHES = collections.Counter({'periodic_embed': 0, 'periodic_embed_bf16': 0,
+                                'periodic_embed_bwd': 0})
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -125,7 +128,8 @@ def _fwd_launch(coords: torch.Tensor, a: _Args,
         coords.data_ptr(), *a.consts(), n, a.k, *a.res, out.data_ptr(),
         int(bf16), torch.cuda.current_stream(a.dev).cuda_stream)
     check_cuda(status, 'periodic_embed')
-    LAUNCHES['periodic_embed_bf16' if bf16 else 'periodic_embed'] += 1
+    name = 'periodic_embed_bf16' if bf16 else 'periodic_embed'
+    LAUNCHES[f'{name}[{n}x{a.k * a.d}]'] += 1
     return out
 
 

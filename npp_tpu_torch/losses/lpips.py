@@ -1,11 +1,13 @@
 """LPIPS perceptual metric/loss in PyTorch, NHWC at its public call.
 
 Port of `npp_tpu/losses/lpips.py` (reference: externel_lib/lpips/lpips.py:
-27-133) for the VGG net in non-spatial mode, including the repo's per-layer
-adaptive-robust diffs (`use_robust`, lpips.py:103-113), whose rho goes
-through K4 (losses/robust.py::weighted_nll_rows_group, one forward launch
-for the five layers) with the lin head as the channel weight. Spatial mode and the alex and squeeze nets are not ported
-yet.
+27-133) for the VGG and AlexNet towers, including the repo's two
+modifications: per-layer adaptive-robust diffs (`use_robust`,
+lpips.py:103-113), whose rho goes through K4
+(losses/robust.py::weighted_nll_rows_group, one forward launch for the
+five layers) with the lin head as the channel weight, and spatial mode
+(each layer's map up-sampled to the input, lpips.py:115-124), which the
+segmentation refinement reads. The squeeze net is not ported.
 """
 from __future__ import annotations
 
@@ -13,9 +15,11 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..nn.features import (VGG16_BLOCKS, VGG16_LPIPS_TAPS, VGGFeatures,
+from ..nn.features import (ALEX_CONV_SHAPES, ALEX_LPIPS_TAPS, VGG16_BLOCKS,
+                           VGG16_LPIPS_TAPS, AlexNetFeatures, VGGFeatures,
                            vgg_conv_shapes)
 from ..nn.pretrained import load_lpips_lins, load_tower_params
 from .robust import (AdaptiveLossParams, adaptive_init,
@@ -24,7 +28,8 @@ from .robust import (AdaptiveLossParams, adaptive_init,
 _SHIFT = np.asarray([-0.030, -0.088, -0.188], np.float32)
 _SCALE = np.asarray([0.458, 0.448, 0.450], np.float32)
 
-LPIPS_CHNS = {'vgg': (64, 128, 256, 512, 512)}
+LPIPS_CHNS = {'vgg': (64, 128, 256, 512, 512),
+              'alex': (64, 192, 384, 256, 256)}
 
 
 def normalize_tensor(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -33,23 +38,43 @@ def normalize_tensor(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return feat / (norm + eps)
 
 
+def upsample_bilinear(m: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(N, h0, w0, 1) -> (N, h, w, 1): jax.image.resize(..., 'bilinear')
+    when up-sampling (half-pixel centres, edge samples held), which is
+    F.interpolate's align_corners=False form."""
+    return F.interpolate(m.permute(0, 3, 1, 2), size=(h, w), mode='bilinear',
+                         align_corners=False).permute(0, 2, 3, 1)
+
+
 class LPIPS:
     """Callable LPIPS on NHWC float images.
 
-    __call__(in0, in1, use_robust=False, adaptive=None, normalize=False)
-    -> (N, 1, 1, 1). normalize=True maps [0,1] inputs to [-1,1] first;
-    adaptive: per-layer AdaptiveLossParams (trainable) for use_robust."""
+    __call__(in0, in1, use_robust=False, adaptive=None, normalize=False,
+    spatial=False, ret_per_layer=False) -> (N, 1, 1, 1), or (N, H, W, 1)
+    with spatial, and with ret_per_layer also the list of per-layer maps.
+    normalize=True maps [0,1] inputs to [-1,1] first; a one-channel input
+    broadcasts against the three-channel shift and scale, as in JAX.
+    adaptive: per-layer AdaptiveLossParams (trainable) for use_robust.
+    dtype: the tower's activations (feature_dtype); the diffs' robust
+    terms and the head run in f32."""
 
-    def __init__(self, device: torch.device, net: str = 'vgg'):
-        if net != 'vgg':
+    def __init__(self, device: torch.device, net: str = 'vgg',
+                 dtype: torch.dtype = torch.float32):
+        if net not in LPIPS_CHNS:
             raise NotImplementedError(
-                f"LPIPS net {net!r} is not ported yet (ROADMAP.md)")
+                f"LPIPS net {net!r} is not ported (ROADMAP.md)")
         self.chns = LPIPS_CHNS[net]
-        self.taps: Sequence[str] = VGG16_LPIPS_TAPS
-        shapes = vgg_conv_shapes(VGG16_BLOCKS)
-        self.tower = VGGFeatures(
-            load_tower_params('vgg16', shapes, len(shapes), device),
-            VGG16_BLOCKS)
+        if net == 'vgg':
+            self.taps: Sequence[str] = VGG16_LPIPS_TAPS
+            shapes = vgg_conv_shapes(VGG16_BLOCKS)
+            self.tower = VGGFeatures(
+                load_tower_params('vgg16', shapes, len(shapes), device),
+                VGG16_BLOCKS, dtype)
+        else:
+            self.taps = ALEX_LPIPS_TAPS
+            self.tower = AlexNetFeatures(
+                load_tower_params('alexnet_tv', ALEX_CONV_SHAPES,
+                                  len(ALEX_CONV_SHAPES), device), dtype)
         lins = load_lpips_lins(net, device)
         if lins is None:
             # uncalibrated fallback: uniform positive head
@@ -70,7 +95,8 @@ class LPIPS:
     def __call__(self, in0: torch.Tensor, in1: torch.Tensor,
                  use_robust: bool = False,
                  adaptive: Optional[Sequence[AdaptiveLossParams]] = None,
-                 normalize: bool = False) -> torch.Tensor:
+                 normalize: bool = False, spatial: bool = False,
+                 ret_per_layer: bool = False):
         if normalize:
             in0 = 2.0 * in0 - 1.0
             in1 = 2.0 * in1 - 1.0
@@ -79,7 +105,9 @@ class LPIPS:
         feats0 = self.features(in0)
         feats1 = self.features(in1)
 
-        diffs = [normalize_tensor(f0) - normalize_tensor(f1)
+        # f32 from here: JAX promotes the bf16 diffs against the f32
+        # latents and heads
+        diffs = [(normalize_tensor(f0) - normalize_tensor(f1)).float()
                  for f0, f1 in zip(feats0, feats1)]
         if use_robust:
             if adaptive is None:
@@ -91,9 +119,14 @@ class LPIPS:
         else:
             rows = [torch.sum(torch.square(d) * lin, dim=-1)
                     for d, lin in zip(diffs, self.lins)]
-        val = None
+        res = []
         for d, r in zip(diffs, rows):
             n, h, w = d.shape[:3]
-            m = torch.mean(r.reshape(n, h * w), dim=1).reshape(n, 1, 1, 1)
-            val = m if val is None else val + m
-        return val
+            m = r.reshape(n, h, w, 1)
+            res.append(upsample_bilinear(m, in0.shape[1], in0.shape[2])
+                       if spatial else
+                       torch.mean(m, dim=(1, 2), keepdim=True))
+        val = res[0]
+        for m in res[1:]:
+            val = val + m
+        return (val, res) if ret_per_layer else val

@@ -9,7 +9,9 @@ is the robust NLL over each layer's flattened Gram residual, (P*K, C^2)
 with C^2 = 4,096, 16,384 and 65,536: its rho terms go through K4's wide
 rows, the three layers in one forward launch
 (losses/robust.py::weighted_nll_rows_group), the per-element mean and the
-1/(C H W) normalisation folded into the channel weight.
+1/(C H W) normalisation folded into the channel weight. With a bf16
+`dtype` (feature_dtype) the tower, the Grams and their difference are bf16
+as in JAX, and the loss terms f32.
 """
 from __future__ import annotations
 
@@ -30,14 +32,15 @@ class StyleLoss:
     """__call__(a_img, b_img, weight=None, adaptive=None, valid=None) -> ()
     on NHWC images; adaptive: the three layers' AdaptiveLossParams."""
 
-    def __init__(self, device: torch.device, use_adaptive: bool = False):
+    def __init__(self, device: torch.device, use_adaptive: bool = False,
+                 dtype: torch.dtype = torch.float32):
         self.use_adaptive = use_adaptive
         shapes = vgg_conv_shapes(VGG16_BLOCKS)
         # the whole tower's weights (the LPIPS tower's, cached); the call
         # stops at pool3
         self.tower = VGGFeatures(
             load_tower_params('vgg16', shapes, len(shapes), device),
-            VGG16_BLOCKS)
+            VGG16_BLOCKS, dtype)
 
     def init_adaptive(self) -> nn.ModuleList:
         """One AdaptiveLossFunction per layer over the flattened Gram
@@ -68,8 +71,8 @@ class StyleLoss:
         for fa, fb in zip(self.features(a_img), self.features(b_img)):
             n, c, h, w = fa.shape
             av, bv = fa.reshape(n, c, h * w), fb.reshape(n, c, h * w)
-            diff = torch.bmm(av, av.transpose(1, 2)) - \
-                torch.bmm(bv, bv.transpose(1, 2))
+            diff = (torch.bmm(av, av.transpose(1, 2)) -
+                    torch.bmm(bv, bv.transpose(1, 2))).float()
             denom = c * h * w
             if not self.use_adaptive:
                 loss = loss + agg(torch.mean(torch.abs(diff) / denom,

@@ -1,12 +1,12 @@
 """Task data loaders (reference: loaders/loaders.py:82-136).
 
-A copy of the completion and remapping loaders of
+A copy of the completion, remapping and segmentation loaders of
 `npp_tpu/models/loaders.py`: host-side numpy preprocessing whose outputs
-are plain arrays + metadata consumed by the pipelines. The remapping loader
-is split into file reading (`load_remapping`) and a function on arrays
-(`remapping_data`, whose blur map runs on the caller's device), so that
-data made in memory needs no PNGs. The segmentation loader is not ported
-yet.
+are plain arrays + metadata consumed by the pipelines. The remapping and
+segmentation loaders are each split into file reading (`load_remapping`,
+`load_segmentation`) and a function on arrays (`remapping_data`, whose
+blur map runs on the caller's device; `segmentation_data`, whose SLIC
+does), so that data made in memory needs no PNGs.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..ops.blur import blur_map
+from ..ops.blur import blur_map, blur_with_mask
 from ..utils.io import patch_size_from_periods, read_odgt, read_gray, read_rgb
 
 
@@ -153,3 +153,58 @@ def load_remapping(cfg, device: Optional[torch.device] = None) -> TaskData:
     arrays = dict(info, gt_img=read_rgb(info['fpath_gt_img']),
                   valid_mask=read_gray(info['fpath_valid_mask']))
     return remapping_data(arrays, cfg, device)
+
+
+def segmentation_data(arrays: dict, cfg, device: Optional[torch.device] = None
+                      ) -> TaskData:
+    """reference: loaders.py:141-239, on arrays: 'gt_img' (H, W, 3) in
+    [0, 1], 'valid_mask' (H, W, 1) and the record's lattices. The coarse
+    SLIC + GMM + graph cut (its SLIC on `device`) proposes the periodic
+    region: the class that holds most of the centre quarter, so the mask
+    does not depend on the GMM's component order. The model is fit on the
+    masked-blurred image."""
+    from ..segmentation.coarse import coarse_segment
+
+    img = np.asarray(arrays['gt_img'], np.float64)
+    valid_mask = np.asarray(arrays['valid_mask'], np.float64)
+    img_u8 = np.uint8(img * 255)
+    blur_img = blur_with_mask(img_u8, valid_mask) / 255.0
+
+    seg = coarse_segment(img_u8, valid_mask[..., 0] > 0.5,
+                         nb_classes=cfg.nb_classes, sp_size=cfg.sp_size,
+                         sp_regul=cfg.sp_regul, device=device)
+    seg = np.uint8((seg + 1) * valid_mask[..., 0])
+
+    h, w = seg.shape
+    counts = np.bincount(seg[h // 4: h // 4 * 3, w // 4: w // 4 * 3].reshape(-1),
+                         minlength=cfg.nb_classes + 1)[1:]
+    period_label = int(counts.argmax()) + 1
+
+    period_mask = (seg == period_label)[..., None].astype(np.float64)
+    non_period_mask = (((seg != period_label) & (seg > 0))[..., None]
+                       ).astype(np.float64)
+
+    train = np.stack(np.nonzero((period_mask * valid_mask)[..., 0]), 1)
+    val = np.stack(np.nonzero(((1 - period_mask) * valid_mask)[..., 0]), 1)
+
+    shifts, angles, periods = _topk_periodicity(arrays, cfg.p_topk,
+                                                cfg.aux_gate_ratio)
+    return pad_canvas(TaskData(img=img, masked_img=blur_img, mask=period_mask,
+                               valid_mask=valid_mask, i_train=train, i_val=val,
+                               selected_shifts=shifts, selected_angles=angles,
+                               selected_periods=periods,
+                               patch_size=patch_size_from_periods(periods),
+                               extra={'blur_img': blur_img,
+                                      'period_mask': period_mask,
+                                      'non_period_mask': non_period_mask,
+                                      'coarse_seg': seg}),
+                      cfg.canvas_multiple)
+
+
+def load_segmentation(cfg, device: Optional[torch.device] = None) -> TaskData:
+    """reference: loaders.py:141-239: cfg.datadir's record and images,
+    then segmentation_data."""
+    info = read_odgt(cfg.datadir)
+    arrays = dict(info, gt_img=read_rgb(info['fpath_gt_img']),
+                  valid_mask=read_gray(info['fpath_valid_mask']))
+    return segmentation_data(arrays, cfg, device)

@@ -1,6 +1,7 @@
 """The per-image fit driver, a port of `npp_tpu/models/pipeline.py` for the
-completion and remapping tasks: build components -> staged fit (patch-size
-decay, pipeline.py:240-250) -> eval hooks at the i_testset cadence."""
+completion, remapping and segmentation tasks: build components -> staged
+fit (patch-size decay, pipeline.py:240-250) -> eval hooks at the i_testset
+cadence."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,7 +27,8 @@ from .trainer import (COMPLETION_TASK, FitConsts, FitState, TaskSpec,
 
 def check_slice(cfg) -> None:
     """Options not ported yet raise instead of silently doing something
-    else (ROADMAP.md lists them)."""
+    else (ROADMAP.md lists them). Every SegmentationConfig option and
+    feature_dtype are ported."""
     unported = {
         "comp_seam='residual'": cfg.comp_seam != 'none',
     }
@@ -34,6 +36,13 @@ def check_slice(cfg) -> None:
         if on:
             raise NotImplementedError(
                 f'{name} is not ported to npp_tpu_torch yet (see ROADMAP.md)')
+
+
+def feature_dtype(cfg) -> torch.dtype:
+    """torch.bfloat16 for feature_dtype='bfloat16', else float32, as
+    npp_tpu reads the field."""
+    return torch.bfloat16 if cfg.feature_dtype == 'bfloat16' \
+        else torch.float32
 
 
 @dataclasses.dataclass
@@ -66,9 +75,15 @@ def build_components(cfg, data: TaskData, device: torch.device,
         else:
             model = NPPNetTop1(embedder.top1_dim, depth=cfg.netdepth,
                                width=cfg.netwidth, activation=cfg.activation)
-    percep = LPIPS(device, net='vgg') if cfg.use_perceptual_loss else None
+    # cfg.feature_dtype: the LPIPS and style towers' activations
+    # (npp_tpu/models/pipeline.py:53-73); the CX tower stays f32, since
+    # bf16 features reshuffle its matches
+    fdt = feature_dtype(cfg)
+    percep = LPIPS(device, net='vgg', dtype=fdt) \
+        if cfg.use_perceptual_loss else None
     contextual = ContextualLoss(device) if cfg.use_contextual_loss else None
-    style = StyleLoss(device, getattr(cfg, 'use_adaptive_style_loss', False)) \
+    style = StyleLoss(device, getattr(cfg, 'use_adaptive_style_loss', False),
+                      fdt) \
         if task.use_style and getattr(cfg, 'use_style_loss', False) else None
     return Components(embedder, model.to(device), percep, contextual, style)
 
@@ -78,8 +93,10 @@ def make_fit_consts(cfg, data: TaskData, patch_size: int,
                     task: TaskSpec = COMPLETION_TASK) -> FitConsts:
     """Remapping (pipeline.py:86-102) fits the whole image: its pixels are
     data.img, weighted by the clear mask, and its sampler's mask is
-    data.mask (the clear mask); completion fits the masked image where
-    known."""
+    data.mask (the clear mask). Completion and segmentation fit
+    data.masked_img (the masked image; segmentation's blurred image) with
+    unit pixel weights, and sample where data.mask * valid (the known
+    region; segmentation's coarse period mask)."""
     remap = task.name == 'remapping'
     pixel_img = data.img if remap else data.masked_img
     pixel_mask = data.extra['clear_mask'] if task.pixel_mask_from_gt \

@@ -1,12 +1,16 @@
-"""VGG conv feature towers in PyTorch, NCHW inside.
+"""VGG and AlexNet conv feature towers in PyTorch, NCHW inside.
 
-Port of `npp_tpu/nn/features.py::VGGFeatures` (reference:
+Port of `npp_tpu/nn/features.py::VGGFeatures` and `AlexNetFeatures` in
+its torchvision layout (`owt=False`, the LPIPS-alex tower; reference:
 externel_lib/lpips/pretrained_networks.py, contextual_loss/modules/vgg.py).
-Convs are named `conv0`, `conv1`, ... as the flax module names them, and
-taps keep its names: relu{block}_{idx} after each ReLU, pool{block} after
-each maxpool. The tower stops at the deepest tap the caller asks for (XLA
+Convs are named `conv0`, `conv1`, ... as the flax modules name them, and
+taps keep their names: for VGG relu{block}_{idx} after each ReLU and
+pool{block} after each maxpool, for AlexNet conv1 (before its ReLU) and
+relu1..relu5. A tower stops at the deepest tap the caller asks for (XLA
 dropped the unused layers for the JAX package; eager PyTorch would run
-them). AlexNet and SqueezeNet are not ported yet.
+them). `dtype` is the activations' dtype (flax's `dtype`: the weights are
+cast per call, the input on entry). AlexNet's `owt=True` form and
+SqueezeNet are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,6 +29,12 @@ VGG16_LPIPS_TAPS = ('relu1_2', 'relu2_2', 'relu3_3', 'relu4_3', 'relu5_3')
 # models/style_loss.py:11-14)
 VGG16_STYLE_TAPS = ('pool1', 'pool2', 'pool3')
 VGG19_CX_TAP = 'relu3_4'
+ALEX_LPIPS_TAPS = ('relu1', 'relu2', 'relu3', 'relu4', 'relu5')
+# HWIO kernel shapes of the torchvision AlexNet's five convs
+ALEX_CONV_SHAPES: Dict[str, Tuple[int, int, int, int]] = {
+    'conv0': (11, 11, 3, 64), 'conv1': (5, 5, 64, 192),
+    'conv2': (3, 3, 192, 384), 'conv3': (3, 3, 384, 256),
+    'conv4': (3, 3, 256, 256)}
 
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
@@ -40,18 +50,29 @@ def vgg_conv_shapes(blocks) -> Dict[str, Tuple[int, int, int, int]]:
     return shapes
 
 
+Params = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _cast(params: Params, dtype: torch.dtype) -> Params:
+    if dtype == torch.float32:
+        return params
+    return {k: (w.to(dtype), b.to(dtype)) for k, (w, b) in params.items()}
+
+
 class VGGFeatures:
     """VGG-16/19 tower with fixed weights: {'conv<i>': (weight OIHW, bias)}.
-    __call__(x NCHW, taps) -> {tap: activation NCHW}."""
+    __call__(x NCHW, taps) -> {tap: activation NCHW} in `dtype`."""
 
-    def __init__(self, params: Dict[str, Tuple[torch.Tensor, torch.Tensor]],
-                 blocks=VGG16_BLOCKS):
-        self.params = params
+    def __init__(self, params: Params, blocks=VGG16_BLOCKS,
+                 dtype: torch.dtype = torch.float32):
+        self.params = _cast(params, dtype)
         self.blocks = blocks
+        self.dtype = dtype
 
     def __call__(self, x: torch.Tensor, taps: Sequence[str]
                  ) -> Dict[str, torch.Tensor]:
         wanted = set(taps)
+        x = cpu_nchw(x.to(self.dtype))
         outs: Dict[str, torch.Tensor] = {}
         conv_idx = 0
         for b, (n_convs, _) in enumerate(self.blocks, start=1):
@@ -67,6 +88,50 @@ class VGGFeatures:
             if wanted <= outs.keys():
                 return {t: outs[t] for t in taps}
         raise KeyError(f'unknown taps {sorted(wanted - outs.keys())}')
+
+
+class AlexNetFeatures:
+    """The torchvision AlexNet tower (`owt=False`: conv1 padding 2,
+    unpadded 3x3 maxpools) with fixed weights {'conv<i>': (weight OIHW,
+    bias)}. __call__(x NCHW, taps) -> {tap: activation NCHW} in `dtype`."""
+
+    # (stride, padding, maxpool before the conv)
+    LAYERS = ((4, 2, False), (1, 2, True), (1, 1, True), (1, 1, False),
+              (1, 1, False))
+
+    def __init__(self, params: Params, dtype: torch.dtype = torch.float32):
+        self.params = _cast(params, dtype)
+        self.dtype = dtype
+
+    def __call__(self, x: torch.Tensor, taps: Sequence[str]
+                 ) -> Dict[str, torch.Tensor]:
+        wanted = set(taps)
+        x = cpu_nchw(x.to(self.dtype))
+        outs: Dict[str, torch.Tensor] = {}
+        for i, (stride, pad, pool) in enumerate(self.LAYERS):
+            if pool:
+                x = F.max_pool2d(x, 3, 2)
+            w, bias = self.params[f'conv{i}']
+            x = F.conv2d(x, w, bias, stride=stride, padding=pad)
+            if i == 0:
+                outs['conv1'] = x
+            x = torch.relu(x)
+            outs[f'relu{i + 1}'] = x
+            if wanted <= outs.keys():
+                return {t: outs[t] for t in taps}
+        raise KeyError(f'unknown taps {sorted(wanted - outs.keys())}')
+
+
+def cpu_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NCHW-contiguous copy of a CPU tensor; a CUDA tensor as it is.
+
+    The towers are called on permuted NHWC images, which are channels-last
+    in memory. PyTorch's CPU convolutions accumulate channels-last input
+    less accurately than NCHW, and a ReLU that flipped on that error took
+    the LPIPS input gradient far from float64 on some hosts
+    (scripts/lpips_grad_vs_float64.py measures both layouts). On the card
+    cuDNN keeps the channels-last layout."""
+    return x.contiguous() if x.device.type == 'cpu' else x
 
 
 def imagenet_normalize(img01: torch.Tensor) -> torch.Tensor:

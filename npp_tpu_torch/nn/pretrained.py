@@ -10,12 +10,15 @@ Port of the asset and analytic paths of `npp_tpu/nn/pretrained.py`:
 
 The `.pth` conversion path and the flat random fallback are not ported yet.
 Towers are cached per process, keyed by name, depth and device; callers
-share the tensors and must not modify them.
+share the tensors and must not modify them. `weight_reports()` says which
+path each tower took (the segmentation refinement's `seg_autocal='auto'`
+reads it).
 """
 from __future__ import annotations
 
 import os
 import threading
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -27,6 +30,26 @@ ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), 'assets')
 
 _TOWERS: Dict[tuple, Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = {}
 _LOCK = threading.Lock()
+
+
+@dataclass
+class WeightReport:
+    name: str
+    source: str   # 'asset' | 'analytic'
+
+    @property
+    def pretrained(self) -> bool:
+        """True only for converted checkpoints: analytic weights are
+        structured but not calibrated to the reference's thresholds."""
+        return self.source != 'analytic'
+
+
+_REPORTS: Dict[str, WeightReport] = {}
+
+
+def weight_reports() -> Dict[str, WeightReport]:
+    """{tower name: WeightReport} for every tower loaded in this process."""
+    return dict(_REPORTS)
 
 
 class _Shape:
@@ -63,6 +86,8 @@ def load_tower_params(name: str, conv_shapes: Dict[str, tuple], n_convs: int,
         if hit is not None:
             return hit
         path = os.path.join(ASSET_DIR, f'{name}.npz')
+        _REPORTS[name] = WeightReport(
+            name, 'asset' if os.path.exists(path) else 'analytic')
         if os.path.exists(path):
             with np.load(path) as f:
                 hwio = {f'conv{i}': {'kernel': f[f'conv{i}/kernel'],

@@ -7,6 +7,9 @@ embedding channels) on any machine. `synthetic_search_data` gives the same
 image and masks without the lattices, for the periodicity search, and
 `synthetic_remap_data` the image without its hole, blurred inside an
 ellipse, with its lattices, for the remapping task.
+`synthetic_segment_data` is another image: a near-periodic texture with
+two non-periodic blobs and their ground-truth mask, for the segmentation
+task.
 """
 from __future__ import annotations
 
@@ -84,3 +87,49 @@ def synthetic_remap_data(seed: int = 0, h: int = H, w: int = W) -> dict:
             'selected_shifts': SHIFTS, 'selected_angles': ANGLES,
             'selected_periods': PERIODS, 'sharp': sharp,
             'blur_region': region}
+
+
+def _segment_example(seed: int, h: int, w: int):
+    """A copy of scripts/eval_segmentation_iou.py:29-62::synth_example:
+    a texture oscillating around a constant local mean (periods py, px
+    well under the superpixel size) with two blobs of distinct base
+    colour pasted in. Returns (image in [0, 1], blob mask, py, px)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    py, px = rng.choice([8, 10, 12]), rng.choice([10, 12, 16])
+    ph = rng.uniform(0, 2 * np.pi, 3)
+    base = np.asarray([0.55, 0.5, 0.42])
+    osc = np.stack([np.sin(2 * np.pi * xx / px + ph[0]),
+                    np.sin(2 * np.pi * yy / py + ph[1]),
+                    np.sin(2 * np.pi * (xx / px + yy / py) + ph[2])], -1)
+    amp = np.asarray([0.22, 0.18, 0.1])
+    img = base + amp * osc + rng.randn(h, w, 3) * 0.015
+    gt_mask = np.zeros((h, w), bool)
+    for b in range(2):
+        cy, cx_ = rng.randint(h // 4, 3 * h // 4), rng.randint(w // 4, 3 * w // 4)
+        ry, rx = rng.randint(24, 40), rng.randint(28, 46)
+        blob = ((yy - cy) / ry) ** 2 + ((xx - cx_) / rx) ** 2 < 1
+        gt_mask |= blob
+        color = np.asarray([0.08, 0.1, 0.14]) if b == 0 \
+            else np.asarray([0.92, 0.88, 0.8])
+        tex = color + rng.randn(h, w, 3) * 0.05 \
+            + 0.1 * np.sin(0.0004 * ((yy - cy) ** 2 + (xx - cx_) ** 2))[..., None]
+        img = np.where(blob[..., None], tex, img)
+    return np.clip(img, 0, 1), gt_mask, float(py), float(px)
+
+
+def synthetic_segment_data(seed: int = 0, h: int = 256, w: int = 320
+                           ) -> dict:
+    """The segmentation example of scripts/eval_segmentation_iou.py at
+    (h, w), as `models/loaders.py::segmentation_data` reads it: 'gt_img',
+    'valid_mask' and the lattices of its construction in the convention
+    of SHIFTS / ANGLES / PERIODS (top-1 (py, px), then (py/2, px/2) and
+    (2py, 2px), the top-1 shifts for all three; patch size 64); also
+    'gt_mask', the blobs' (H, W) bool ground truth."""
+    img, gt_mask, py, px = _segment_example(seed, h, w)
+    return {'gt_img': img, 'valid_mask': np.ones((h, w, 1)),
+            'selected_shifts': [[[px, 0.0], [0.0, py]]] * TOPK,
+            'selected_angles': [[90.0, 180.0]] * TOPK,
+            'selected_periods': [[py, px], [py / 2, px / 2],
+                                 [2 * py, 2 * px]],
+            'gt_mask': gt_mask}

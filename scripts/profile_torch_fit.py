@@ -2,7 +2,8 @@
 
     python3 scripts/profile_torch_fit.py [--blocks 2]
                                          [--matmul_precision bfloat16]
-                                         [--task completion|remapping]
+                                         [--task completion|remapping|
+                                                 segmentation]
                                          [--warp_field] [--out FILE]
 
 Builds the main path's fit (default CompletionConfig widths and
@@ -11,7 +12,10 @@ and convolutions in TF32, 'float32' in full f32; the 384x512
 synthetic example of npp_tpu_torch/utils/synthetic.py, blocks of 10 steps
 with the per-block embedding table), or with --task remapping the
 remapping fit (default RemappingConfig widths, the synthetic remapping
-example with its blur map on the card), or with --warp_field the
+example with its blur map on the card), or with --task segmentation the
+segmentation fit (default SegmentationConfig widths, the 256x320
+synthetic segmentation example with its coarse mask, SLIC on the card),
+or with --warp_field the
 completion with the warp field (K1 and its backward on the fly every
 step), runs one block to warm up (kernel
 builds, cuDNN's algorithm choice), then profiles `--blocks` more blocks with
@@ -59,7 +63,7 @@ def main(argv=None):
                     help="the fit's matmul_precision (default: "
                          "CompletionConfig's)")
     ap.add_argument('--task', default='completion',
-                    choices=('completion', 'remapping'))
+                    choices=('completion', 'remapping', 'segmentation'))
     ap.add_argument('--warp_field', action='store_true')
     ap.add_argument('--out', default=os.path.join(ROOT, 'chiprun_out',
                                                   'profile_torch_fit.json'))
@@ -71,21 +75,27 @@ def main(argv=None):
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
     from npp_tpu_torch.config import (CompletionConfig, RemappingConfig,
-                                      replace)
+                                      SegmentationConfig, replace)
     from npp_tpu_torch.device import matmul_precision
-    from npp_tpu_torch.models.loaders import remapping_data
+    from npp_tpu_torch.models.loaders import remapping_data, segmentation_data
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.remapping import REMAPPING_TASK
+    from npp_tpu_torch.models.segmentation import SEGMENTATION_TASK
     from npp_tpu_torch.models.trainer import (COMPLETION_TASK, init_fit_state,
                                               make_fit_block)
     from npp_tpu_torch.utils.synthetic import (synthetic_data,
-                                               synthetic_remap_data)
+                                               synthetic_remap_data,
+                                               synthetic_segment_data)
 
     dev = torch.device('cuda')
     if args.task == 'remapping':
         cfg, task = RemappingConfig(), REMAPPING_TASK
         with matmul_precision('float32'):
             data = remapping_data(synthetic_remap_data(0), cfg, dev)
+    elif args.task == 'segmentation':
+        cfg, task = SegmentationConfig(), SEGMENTATION_TASK
+        with matmul_precision('float32'):
+            data = segmentation_data(synthetic_segment_data(0), cfg, dev)
     else:
         cfg, task = CompletionConfig(), COMPLETION_TASK
         data = synthetic_data(0)

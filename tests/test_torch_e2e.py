@@ -10,7 +10,6 @@ to `npp_tpu` step by step."""
 import os
 
 import numpy as np
-import pytest
 
 from tests.test_e2e_completion import example_dir  # noqa: F401  (fixture)
 from tests.torch_threads import few_threads  # noqa: F401  (autouse)
@@ -64,8 +63,19 @@ def test_cli_complete_runs_on_the_cpu(example_dir, tmp_path, capsys):  # noqa: F
                  '--i_testset', '2', '--i_print', '2',
                  '--use_perceptual_loss', 'false']) == 0
     assert 'val_psnr' in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        main(['segment', '--datadir', example_dir])
+    # segment reads the same record's gt_img and valid_mask (superpixels
+    # of 8 px, so the 48x56 image has enough of them for three classes)
+    seg = tmp_path / 'seg'
+    assert main(['segment', '--datadir', example_dir, '--basedir', str(seg),
+                 '--device', 'cpu', '--netwidth', '16', '--netdepth', '2',
+                 '--N_rand', '64', '--patch_num', '1',
+                 '--num_real_patch_per_sample', '2', '--N_iters', '3',
+                 '--i_testset', '2', '--i_print', '2', '--sp_size', '8']) == 0
+    name = example_dir.rstrip('/').split('/')[-1]
+    out = os.path.join(str(seg), 'segmentation_top3', name)
+    assert os.path.exists(os.path.join(out, 'segment_init.png'))
+    for f in ('segment.png', 'segment_mask.png', 'lpips_diff_img_0.png'):
+        assert os.path.exists(os.path.join(out, 'testset_000002', f)), f
 
 
 def test_cli_search_then_complete_on_the_cpu(example_dir, tmp_path,  # noqa: F811

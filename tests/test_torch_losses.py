@@ -243,3 +243,49 @@ def test_lpips_robust_value_and_grads_match_jax(towers):
     with torch.no_grad(), native_conv():
         m = towers['lp'](_t(a), _t(b), normalize=True)
     np.testing.assert_allclose(m.numpy(), np.asarray(jm), rtol=1e-4)
+
+
+def _lpips_f64(lp):
+    """A float64 copy of a port LPIPS: its tower, heads, shift and scale
+    cast (the cached f32 tower is left as it is)."""
+    import copy
+    out = copy.copy(lp)
+    out.tower = copy.copy(lp.tower)
+    out.tower.params = {k: (w.double(), b.double())
+                        for k, (w, b) in lp.tower.params.items()}
+    out.tower.dtype = torch.float64
+    out.lins = [x.double() for x in lp.lins]
+    out.shift, out.scale = lp.shift.double(), lp.scale.double()
+    return out
+
+
+@pytest.mark.parametrize('net,robust', [('vgg', False), ('vgg', True),
+                                        ('alex', False)])
+def test_lpips_f32_input_gradient_tracks_float64(towers, net, robust):
+    """The port's f32 LPIPS input gradient against the same module in
+    float64, on tests' default CPU convolutions (no native_conv): within
+    5e-5 of the largest float64 magnitude, about ten times JAX's own f32
+    distance from it at these inputs (scripts/lpips_grad_vs_float64.py
+    prints both). The towers used to run on permuted NHWC input, which
+    PyTorch's CPU convolutions accumulate less accurately: a ReLU flipped
+    on that error and put the gradient about 1e-2 from float64
+    (nn/features.py::cpu_nchw)."""
+    a, b = _patches(1) if net == 'vgg' else _patches(1, n=2, s=64)
+    lp = towers['lp'] if net == 'vgg' else LPIPS(CPU, net='alex')
+    lats = lp.init_adaptive()
+    rng = np.random.RandomState(2)
+    with torch.no_grad():
+        for p in lats:
+            p.latent_alpha.copy_(torch.tensor(rng.randn(*p.latent_alpha.shape)))
+            p.latent_scale.copy_(torch.tensor(rng.randn(
+                *p.latent_scale.shape) - 1.0))
+    grads = []
+    for mod, dt in ((lp, torch.float32), (_lpips_f64(lp), torch.float64)):
+        x = torch.tensor(a, dtype=dt, requires_grad=True)
+        v = torch.mean(mod(x, torch.tensor(b, dtype=dt), use_robust=robust,
+                           adaptive=lats.to(dt) if robust else None,
+                           normalize=True))
+        v.backward()
+        grads.append(x.grad.double().numpy())
+    g32, g64 = grads
+    assert np.abs(g32 - g64).max() <= 5e-5 * np.abs(g64).max()

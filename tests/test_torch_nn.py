@@ -170,11 +170,18 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_nothing_of_npp_tpu():
-    banned = ('jax', 'jaxlib', 'flax', 'optax', 'npp_tpu')
+    """Nothing of JAX or npp_tpu anywhere; neither sklearn nor skimage,
+    which the card's machine lacks; cv2 (also absent there) only inside
+    the functions that read and write PNGs, never when a module is
+    imported."""
+    banned = ('jax', 'jaxlib', 'flax', 'optax', 'npp_tpu', 'sklearn',
+              'skimage')
+    banned_at_import = ('cv2',)
     n = 0
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
+        top = {id(node) for node in tree.body}
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -183,7 +190,10 @@ def test_port_imports_no_jax_and_nothing_of_npp_tpu():
             else:
                 continue
             for name in names:
-                assert name.split('.')[0] not in banned, (path, name)
+                root = name.split('.')[0]
+                assert root not in banned, (path, name)
+                assert not (id(node) in top and root in banned_at_import), \
+                    (path, name)
         n += 1
     assert n > 20
 
@@ -200,9 +210,11 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_options_raise():
-    """comp_seam='residual', checkpoints and LPIPS-alex still raise with a
-    pointer to ROADMAP.md; the warp field, the held-out blocks, the 'best'
-    snapshot and the style loss are ported and pass check_slice."""
+    """comp_seam='residual', checkpoints and LPIPS-squeeze still raise with
+    a pointer to ROADMAP.md; the warp field, the held-out blocks, the
+    'best' snapshot, the style loss, the segmentation options and
+    feature_dtype='bfloat16' are ported and pass check_slice, and
+    LPIPS-alex builds."""
     from npp_tpu_torch.losses.lpips import LPIPS
     from npp_tpu_torch.models.pipeline import check_slice, fit_image
     with pytest.raises(NotImplementedError, match='ROADMAP'):
@@ -211,8 +223,15 @@ def test_unported_options_raise():
                {'comp_snapshot': 'best'}):
         check_slice(TC.replace(TC.CompletionConfig(), **kw))
     check_slice(TC.RemappingConfig())
+    check_slice(TC.replace(TC.CompletionConfig(), feature_dtype='bfloat16'))
+    for kw in ({'seg_color_criterion': True}, {'seg_refine_protect': True},
+               {'seg_texture_criterion': True}, {'seg_autocal': 'on'},
+               {'seg_refine_hysteresis': 0.5}):
+        check_slice(TC.replace(TC.SegmentationConfig(), **kw))
+    assert LPIPS(torch.device('cpu'), net='alex').chns == (64, 192, 384, 256,
+                                                           256)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        LPIPS(torch.device('cpu'), net='alex')
+        LPIPS(torch.device('cpu'), net='squeeze')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         fit_image(TC.CompletionConfig(), None, device='cpu',
                   checkpoint_dir='ckpt')

@@ -26,6 +26,7 @@ from npp_tpu_torch.models import pipeline as TP
 from npp_tpu_torch.models import sampler as TS
 from npp_tpu_torch.models import trainer as TT
 from npp_tpu_torch.models.loaders import TaskData
+from npp_tpu_torch.models.remapping import REMAPPING_TASK
 from npp_tpu_torch.nn.embedder import TaskEmbedder, make_embedding_table
 from npp_tpu_torch.nn.mlp import NPPNet
 from npp_tpu_torch.utils.convert import params_from_jax
@@ -82,11 +83,64 @@ def test_bf16_table_fit_step_matches_jax(monkeypatch):
     _fit_step_parity(monkeypatch, 'bfloat16')
 
 
-def _fit_step_parity(monkeypatch, table):
-    """One injected step through both packages; table: None for the trig
-    chain, or the dtype name of the canvas table both embed through."""
+def test_bf16_feature_towers_fit_step_track_jax(monkeypatch):
+    """feature_dtype='bfloat16': the LPIPS tower in bf16 activations (CX
+    stays f32) in both packages. bf16 rounding differs between XLA's and
+    PyTorch's convolutions, so the port's bf16 step is held to JAX's own
+    bf16 step within twice the distance between JAX's bf16 and f32 steps:
+    the loss, and the MLP gradient (the L2 norm of the difference over all
+    its tensors). The loss's bound adds the distance between the two
+    packages' f32 losses, which the bf16 step inherits: at this step JAX's
+    bf16 loss equals its f32 loss to the last bit (the LPIPS-robust term
+    is dominated by its latents' constant), so 2 x 0 alone would demand
+    bit equality. The 2x bound alone would also pass f32 towers (they lie
+    about 1x the gap from JAX's bf16 gradient), so the port's bf16
+    gradient must also lie nearer JAX's bf16 gradient than JAX's f32 one,
+    and the towers build_components makes must carry bf16 activations
+    (LPIPS, and style for the remapping) with CX in f32."""
+    tdata = TaskData(**_tiny_arrays())
+    comps = TP.build_components(TC.replace(
+        TC.CompletionConfig(), feature_dtype='bfloat16', **TINY), tdata, CPU)
+    remap = TP.build_components(
+        TC.replace(TC.RemappingConfig(), feature_dtype='bfloat16', **TINY),
+        tdata, CPU, REMAPPING_TASK)
+    x = torch.rand(1, 3, 16, 16)
+    assert comps.percep.tower(x, comps.percep.taps)[
+        comps.percep.taps[0]].dtype == torch.bfloat16
+    assert remap.style.tower.dtype == torch.bfloat16
+    assert comps.contextual.tower.dtype == torch.float32
+    jl32, jg32, _, tl32, _, _ = _step_both(monkeypatch, None, 'float32')
+    jl16, jg16, _, tl16, _, tst16 = _step_both(monkeypatch, None,
+                                               'bfloat16')
+    assert abs(float(tl16) - float(jl16)) <= \
+        2 * abs(float(jl16) - float(jl32)) + abs(float(tl32) - float(jl32))
+
+    def flat_jax(jg):
+        return np.concatenate([np.concatenate(
+            [np.asarray(p['kernel']).ravel(), np.asarray(p['bias']).ravel()])
+            for _, p in sorted(jg['mlp'].items())])
+
+    def flat_port(st, jg):
+        return np.concatenate([np.concatenate(
+            [getattr(st.params.mlp, n).weight.grad.numpy().T.ravel(),
+             getattr(st.params.mlp, n).bias.grad.numpy().ravel()])
+            for n, _ in sorted(jg['mlp'].items())])
+    j32, j16 = flat_jax(jg32), flat_jax(jg16)
+    bf16_shift = np.linalg.norm(j16 - j32)
+    assert bf16_shift > 0
+    port16 = flat_port(tst16, jg16)
+    assert np.linalg.norm(port16 - j16) <= 2 * bf16_shift
+    assert np.linalg.norm(port16 - j16) < np.linalg.norm(port16 - j32)
+
+
+def _step_both(monkeypatch, table, feature_dtype='float32'):
+    """One injected 'same' step of the tiny completion through both
+    packages. table: None for the trig chain, or the dtype name of the
+    canvas table both embed through; feature_dtype as the config's.
+    Returns (JAX loss, JAX grads, JAX metrics, port loss, port metrics,
+    port state) after the port's backward."""
     cfg = jax_replace(JaxCompletionConfig(), matmul_precision='float32',
-                      **TINY)
+                      feature_dtype=feature_dtype, **TINY)
     arrays = _tiny_arrays()
     jdata = JaxTaskData(**arrays)
     comps = JP.build_components(cfg, jdata, COMPLETION_TASK)
@@ -112,7 +166,8 @@ def _fit_step_parity(monkeypatch, table):
     pix_idx = jax.random.randint(jax.random.split(key)[0], (cfg.N_rand,), 0,
                                  consts.pool_train_n)
 
-    tcfg = TC.replace(TC.CompletionConfig(), **TINY)
+    tcfg = TC.replace(TC.CompletionConfig(), feature_dtype=feature_dtype,
+                      **TINY)
     tdata = TaskData(**arrays)
     tcomps = TP.build_components(tcfg, tdata, CPU)
     tstate = TT.init_fit_state(tcfg, tcomps.model, tcomps.percep, CPU)
@@ -138,7 +193,13 @@ def _fit_step_parity(monkeypatch, table):
                                  TP.make_fit_consts(tcfg, tdata, 16, CPU),
                                  None)
         loss.backward()
+    return jl, jg, jm, loss.detach(), metrics, tstate
 
+
+def _fit_step_parity(monkeypatch, table):
+    """One injected step through both packages; table: None for the trig
+    chain, or the dtype name of the canvas table both embed through."""
+    jl, jg, jm, loss, metrics, tstate = _step_both(monkeypatch, table)
     np.testing.assert_allclose(float(loss), float(jl), rtol=1e-4)
     for k in ('pixel', 'contextual', 'perceptual'):
         np.testing.assert_allclose(float(metrics[k]), float(jm[k]),
