@@ -68,10 +68,28 @@ Phases, in order; any failure exits non-zero:
     SegmentationConfig widths, 21 iterations with refinements at 10 and
     20, counted the same way; its wall, peak memory and the IoU of the
     coarse and refined masks against the example's ground truth;
-13. one JSON line of kernels (with the search's, the remapping's, the
-    warp's and the segmentation's shapes and launches), the paths' walls
-    and metrics, the nvidia-smi line, and the final {"ok": true,
-    "device": {...}} line.
+13. batched paths (parallel/runner.py::fit_images): three flagship
+    images (synthetic seeds 0-2) at the default CompletionConfig, 21
+    iterations (K1's batched forward every step, K2 at (3, 59,392, 512),
+    K4's pixel loss at 8,192 x 9), its steady block profiled beside a
+    sequential fit_image of image 0; two images with
+    embed_table='bfloat16' (both tables in one batched K1 launch); three
+    with the warp field (K1's batched backward every step); in phase 3,
+    K1's batched entries against their plain versions and float64, K2 and
+    K4 at the batched and suite shapes, and one batched step of three
+    images against the three single steps on the card;
+14. suite search: run_search_suite on three synthetic_search_data images
+    (K2 at (27, 2,048, 256 / 128), K4 at 2,048 x 81), whose top-3 must
+    equal each image's sequential run_search, run twice; in full f32 also
+    its distances (within the two runs' spread, or 1e-3 relative);
+15. entry points from files: the flagship example written as PNGs by
+    the port's writer, `cli search` (with its grid pictures), `cli
+    complete --N_iters 11` on its output, and scripts/torch_run_suite.py
+    --batched --batched-search on three examples, in subprocesses;
+16. one JSON line of kernels (with the search's, the remapping's, the
+    warp's, the segmentation's and the batched paths' shapes and
+    launches), the paths' walls and metrics, the nvidia-smi line, and the
+    final {"ok": true, "device": {...}} line.
 """
 import concurrent.futures
 import json
@@ -1479,6 +1497,633 @@ def drive_segment():
         patch_size=data.patch_size)
 
 
+# ---- the multi-image path: K1 batched, the batched step and fit_images,
+# the suite search, and the entry points a user runs from files
+
+# a completion step's rows per image (N_rand + two 160^2 fake patches)
+BATCH_ROWS = 8192 + 2 * 160 * 160
+# three flagship images: their f32 tables (3.27 GB) exceed the default
+# embed_table_max_mb, so K1 runs on the fly every step; two images' bf16
+# tables (1.09 GB) are built in one launch per block
+BATCH_K1 = (3, BATCH_ROWS)
+BATCH_K1_BF16 = (2, 384 * 512)
+BATCH_K2 = (3, BATCH_ROWS, 512)
+BATCH_K4_PIXEL = (8192, 9)
+# the suite search: 3 images x 9 candidates in lockstep
+SUITE_K2 = [(27, 2048, 256), (27, 2048, 128)]
+SUITE_K4 = (2048, 81)
+# the suite's distances under TF32 against the sequential searches': the
+# spread of two sequential runs, or this relative bar (H100 readings: up
+# to 3.1e-3; in full f32 the bar is 1e-3 and the readings 1.3e-5)
+SUITE_TF32_BAR = 1e-2
+K1_REPLACES = ('npp_tpu/nn/embedder.py:149 (TaskEmbedder.embed, vmapped '
+               'over images by npp_tpu/parallel/batch.py:60-72, XLA-fused{}; '
+               'no pl.pallas_call in the repo)')
+
+
+def batch_k1_names():
+    b, n = BATCH_K1
+    return {f'periodic_embed_batched[{b}x{n}x1386]',
+            'periodic_embed_batched_bf16[{}x{}x1386]'.format(*BATCH_K1_BF16),
+            'periodic_embed_batched_bwd'}
+
+
+def batch_names():
+    """The kernel entries of the batched fit's paths."""
+    m, c = BATCH_K4_PIXEL
+    return batch_k1_names() | {
+        f'bias_snake_{k}[{"x".join(map(str, BATCH_K2))}]'
+        for k in ('fwd', 'bwd')} | {f'robust_rho_fwd[{m}x{c}]',
+                                    f'robust_rho_bwd[{m}x{c}]',
+                                    batch_lpips_group_name()}
+
+
+def batch_lpips_group_name():
+    """The batched step's LPIPS K4 launch: a segment per (layer, image)."""
+    shapes = [sh for sh in K4_LPIPS for _ in range(3)]
+    return 'robust_rho_fwd_group[{}]'.format(
+        ','.join(f'{m}x{c}' for m, c in shapes))
+
+
+def suite_names():
+    m, c = SUITE_K4
+    return {f'bias_snake_{k}[{"x".join(map(str, sh))}]'
+            for sh in SUITE_K2 for k in ('fwd', 'bwd')} | \
+        {f'robust_rho_fwd[{m}x{c}]', f'robust_rho_bwd[{m}x{c}]'}
+
+
+def k1_batched_inputs(gen, b, n, jitter):
+    """B images of the flagship's lattices, each with its periods and dims
+    moved (so no two images share K1's constants), n integer canvas
+    coordinates per image (plus a uniform jitter of up to +-3 px, as warped
+    coordinates have, when `jitter`)."""
+    import torch
+    from npp_tpu_torch.utils.synthetic import H, W, synthetic_data
+    data = synthetic_data(0)
+    dev = torch.device('cuda')
+    ang = torch.tensor(data.selected_angles).float()
+    per = torch.tensor(data.selected_periods).float()
+    angles = torch.stack([ang + 3.0 * j for j in range(b)]).to(dev)
+    periods = torch.stack([per * (1.0 + 0.07 * j) for j in range(b)]).to(dev)
+    res = torch.tensor([[H - 32.0 * j, W - 64.0 * j] for j in range(b)],
+                       device=dev)
+    if n == H * W:
+        ys, xs = torch.meshgrid(torch.arange(H), torch.arange(W),
+                                indexing='ij')
+        one = torch.stack([ys, xs], -1).reshape(-1, 2).float()
+        coords = one.expand(b, -1, -1).contiguous()
+    else:
+        coords = torch.stack([torch.randint(0, H, (b, n), generator=gen),
+                              torch.randint(0, W, (b, n), generator=gen)],
+                             -1).float()
+    if jitter:
+        coords = coords + (torch.rand(coords.shape, generator=gen) - 0.5) * 6
+    bands = torch.randn(10, generator=gen) * 10
+    return (coords.to(dev), angles, periods, bands.to(dev), (1.0,),
+            (0.0, -1.0, 1.0, 0.5, -0.5), (0.0,), res)
+
+
+def check_k1_batched(gen):
+    """K1's batched entries: the forward in f32 at the on-the-fly shape
+    (3 x 59,392 rows) against the plain version in f32 and float64; in
+    bf16 at two flagship tables (2 x 196,608), which must be the batched f32
+    kernel's output rounded to nearest even and within one bf16 ulp of the
+    plain f32; the backward in the coordinates at 3 x 59,392 (warped,
+    fractional coordinates) against autograd through the plain version in
+    f32 and float64. Each image has its own proposals and dims."""
+    import torch
+    from npp_tpu_torch.kernels import periodic_embed as pe
+    out = []
+    src = 'npp_tpu_torch/csrc/periodic_embed.cu'
+    for (b, n), dtype in ((BATCH_K1, torch.float32),
+                          (BATCH_K1_BF16, torch.bfloat16)):
+        args = k1_batched_inputs(gen, b, n, False)
+        want = pe.periodic_embed_batched_plain(*args)
+        got32 = pe.periodic_embed_batched(*args)
+        torch.cuda.synchronize()
+        if got32.shape != (b, n, 1386):
+            fail(f'K1 batched output {tuple(got32.shape)}')
+        if dtype == torch.float32:
+            want64 = pe.periodic_embed_batched_plain(
+                *[a.double() if torch.is_tensor(a) else a for a in args])
+            err = judge([(got32, want, want64)])
+            del want64
+            name = f'periodic_embed_batched[{b}x{n}x1386]'
+        else:
+            got = pe.periodic_embed_batched(*args, out_dtype=dtype)
+            torch.cuda.synchronize()
+            rounded = torch.equal(got, got32.to(dtype))
+            ulps = bf16_ulps(got, want.to(dtype), 1e-5)
+            err = dict(max_abs_err=float((got.float() - want).abs().max()),
+                       max_bf16_ulps=ulps, equals_f32_kernel_rounded=rounded,
+                       passed=ulps <= 1.0 and rounded)
+            del got
+            name = f'periodic_embed_batched_bf16[{b}x{n}x1386]'
+        del got32, want
+        n_out = b * n * 1386
+        b_ms, b_by = bound_ms(b * n * 2 * 4 + n_out * dtype.itemsize,
+                              n_out * 20)
+        out.append(dict(
+            name=name, route='cuda', source=src,
+            replaces=K1_REPLACES.format(
+                '' if dtype == torch.float32 else
+                ', and the tables\' .astype(dtype), embedder.py:235'),
+            shape=[b, n, 1386], dtype=str(dtype).split('.')[-1], **err,
+            ms=time_ms(lambda: pe.periodic_embed_batched(
+                *args, out_dtype=dtype)),
+            eager_ms=eager_ms(lambda: pe.periodic_embed_batched(
+                *args, out_dtype=dtype)),
+            plain_ms=time_ms(lambda: pe.periodic_embed_batched_plain(
+                *args, out_dtype=dtype), iters=3),
+            bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
+            library_ms=None))
+        torch.cuda.empty_cache()
+
+    b, n = BATCH_K1
+    args = k1_batched_inputs(gen, b, n, True)
+    coords = args[0]
+    g = torch.randn(b, n, 1386, generator=gen).to(coords.device)
+    ck = coords.clone().requires_grad_()
+    pe.periodic_embed_batched(ck, *args[1:]).backward(g)
+    cp = coords.clone().requires_grad_()
+    pe.periodic_embed_batched_plain(cp, *args[1:]).backward(g)
+    cd = coords.double().requires_grad_()
+    pe.periodic_embed_batched_plain(
+        cd, *[a.double() if torch.is_tensor(a) else a for a in args[1:]]
+    ).backward(g.double())
+    torch.cuda.synchronize()
+    err = judge([(ck.grad, cp.grad, cd.grad)])
+    del cd
+    a = pe._Args(*args)
+
+    def plain_bwd():
+        c = coords.detach().requires_grad_()
+        return torch.autograd.grad(pe.periodic_embed_batched_plain(
+            c, *args[1:]), c, g)
+    # g (B, N, 1386) and the coordinates read, dcoords written
+    b_ms, b_by = bound_ms((b * n * 1386 + 4 * b * n) * 4, b * n * 1386 * 24)
+    out.append(dict(
+        name='periodic_embed_batched_bwd', route='cuda', source=src,
+        replaces=K1_REPLACES.format(', its gradient in the coordinates '
+                                    'under the warp field'),
+        shape=[b, n, 1386], dtype='float32', **err,
+        ms=time_ms(lambda: pe.periodic_embed_bwd_batched_launch(g, coords, a)),
+        eager_ms=eager_ms(lambda: pe.periodic_embed_bwd_batched_launch(
+            g, coords, a)),
+        plain_ms=time_ms(plain_bwd, iters=3),
+        bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by, library_ms=None))
+    return out
+
+
+def check_batch_kernels(gen):
+    """K2 and K4 at the batched paths' new shapes: K2 at the batched step's
+    (3, 59,392, 512) and the suite's (27, 2,048, 256 / 128); K4 at the
+    batched pixel loss's 8,192 x 9 and the suite's 2,048 x 81 both ways,
+    and the batched LPIPS group (a segment per layer and image, 15)."""
+    import torch
+    from npp_tpu_torch.kernels import robust_rho as rr
+    out = []
+    for shape in [BATCH_K2] + SUITE_K2:
+        key = 'x'.join(map(str, shape))
+        out += k2_entries(gen, shape, (f'bias_snake_fwd[{key}]',
+                                       f'bias_snake_bwd[{key}]'))
+    for m, c in (BATCH_K4_PIXEL, SUITE_K4):
+        err = judge_k4_fwd(gen, [(m, c)])
+        x, alpha, scale, w = k4_inputs(gen, m, c, 'spread')
+        out.append(k4_entry(
+            f'robust_rho_fwd[{m}x{c}]', FWD_SRC, [m, c], err,
+            lambda: rr.rho_fwd_launch(x, alpha, scale, w),
+            lambda: rr.rho_rows_plain(x, alpha, scale, w),
+            *fwd_bytes_ops(m, c)))
+        out.append(k4_bwd_entry(gen, m, c, K4_ALPHAS))
+    shapes = [sh for sh in K4_LPIPS for _ in range(3)]
+    err = judge_k4_fwd(gen, shapes)
+    segs = [k4_inputs(gen, m, c, 'spread') for m, c in shapes]
+    n_bytes, ops = (sum(v) for v in zip(*[fwd_bytes_ops(m, c)
+                                          for m, c in shapes]))
+    out.append(k4_entry(
+        batch_lpips_group_name(), FWD_SRC, [list(sh) for sh in shapes], err,
+        lambda: rr.rho_fwd_group_launch(segs),
+        lambda: rr.rho_rows_group_plain(*zip(*segs)), n_bytes, ops))
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_batched_step():
+    """One batched completion step of three images (every loss on, each
+    image on its own injected 'same' batch, matmul_precision='float32')
+    against the same three single-image steps on the card: the loss (the
+    sum of the three) within 1e-5 relative, every gradient within 1e-4 of
+    its tensor's largest value (batched GEMMs and convolutions over three
+    times the patches reassociate)."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
+    from npp_tpu_torch.models.sampler import SOURCE_SAME
+    from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
+    from npp_tpu_torch.nn.embedder import make_task_embedder
+    from npp_tpu_torch.parallel import batch as pb
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    cfg = replace(CompletionConfig(), netwidth=64, netdepth=6, N_rand=512,
+                  patch_num=1, num_real_patch_per_sample=2,
+                  matmul_precision='float32')
+    dev = torch.device('cuda')
+    datas = [synthetic_data(s, 96, 128) for s in (0, 1, 2)]
+    for d in datas:
+        d.patch_size = 32
+    comps = build_components(cfg, datas[0], dev)
+    consts = [make_fit_consts(cfg, d, 32, dev) for d in datas]
+    gen = torch.Generator().manual_seed(3)
+    inject = []
+    for c in consts:
+        b = draw_batch(gen, c.sampler, 1, 32, 2, 0.3,
+                       lambda b: b.source == SOURCE_SAME)
+        inject.append((torch.randint(0, c.pool_train_n, (cfg.N_rand,),
+                                     generator=gen), b))
+    embs = [make_task_embedder(cfg, np.asarray(d.selected_angles),
+                               np.asarray(d.selected_periods),
+                               d.img.shape[:2],
+                               torch.Generator().manual_seed(cfg.seed), dev)
+            for d in datas]
+    state0 = init_fit_state(cfg, comps.model, comps.percep, dev)
+    off = torch.Generator().manual_seed(4)
+    with torch.no_grad():     # the latents off their init
+        for k, v in state0.params.named_parameters():
+            if 'latent' in k:
+                v.copy_(0.3 * torch.randn(v.shape, generator=off).to(dev))
+    state_b = pb.init_batched_state(cfg, state0, 3)
+    emb_b = pb.stack_embedders(embs)
+    loss_fn = pb.build_batched_loss_fn(
+        cfg, comps.percep, comps.contextual, 1, 32,
+        inject=([p for p, _ in inject], [b for _, b in inject]),
+        res=emb_b.res)
+    loss_b, _ = loss_fn(state_b.params, emb_b, pb.stack_consts(consts), None)
+    loss_b.backward()
+    losses, g_err = [], {}
+    for j in range(3):
+        single = pb.unstack_params(state_b.params, state0.params, j)
+        for p in single.parameters():
+            p.grad = None
+        fn = build_loss_fn(cfg, comps.percep, comps.contextual, 1, 32,
+                           inject=inject[j])
+        loss, _ = fn(single, embs[j], consts[j], None)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        for sp, tp, tr in pb._param_pairs(state_b.params, single):
+            want = tp.grad if tp.grad is not None else torch.zeros_like(tp)
+            got = pb._piece(sp.grad, j, tr)
+            e = float((got - want).abs().max()) / \
+                max(float(want.abs().max()), 1e-30)
+            key = f'{j}:{tuple(tp.shape)}'
+            g_err[key] = max(g_err.get(key, 0.0), e)
+    torch.cuda.synchronize()
+    l_err = abs(float(loss_b.detach()) - sum(losses)) / abs(sum(losses))
+    worst = max(g_err, key=g_err.get)
+    log(f'batched step (3 images) vs three single steps on the card: loss '
+        f'{float(loss_b.detach()):.6f} vs {sum(losses):.6f} (rel '
+        f'{l_err:.2e}), worst gradient rel err {g_err[worst]:.2e} ({worst})')
+    if not (l_err <= 1e-5 and g_err[worst] <= 1e-4):
+        fail('the batched step disagrees with the single steps')
+    return dict(loss_rel_err=l_err, worst_grad_rel_err=g_err[worst],
+                worst_grad=worst)
+
+
+def _device_ms(prof):
+    import torch
+    total = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, 'self_device_time_total', None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            total += us / 1e3
+    return total
+
+
+class BlockProfile:
+    """Profiles the block between the hooks at `start` and `stop` (fit
+    iterations): device ms and wall ms of that block."""
+
+    def __init__(self, start, stop):
+        self.start, self.stop, self.prof = start, stop, None
+        self.device_ms = self.wall_ms = None
+
+    def __call__(self, i, *_):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if i == self.start:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t0 = time.time()
+        elif i == self.stop and self.prof is not None:
+            torch.cuda.synchronize()
+            self.wall_ms = 1e3 * (time.time() - self.t0)
+            self.prof.__exit__(None, None, None)
+            self.device_ms = _device_ms(self.prof)
+
+
+def drive_batched():
+    """fit_images on three flagship images (utils/synthetic.py seeds 0-2,
+    384x512, one bucket) at the default CompletionConfig, 21 iterations,
+    every launch count set to 0 just before and read just after: K1's
+    batched forward every step (the three f32 tables exceed
+    embed_table_max_mb), K2 at (3, 59,392, 512), K4's pixel loss at
+    8,192 x 9. Then its steady block under the profiler (device time,
+    busy share) and a sequential fit_image of image 0 the same way; then
+    two images with embed_table='bfloat16' (both tables in one K1 launch)
+    and three with the warp field (K1's batched backward every step)."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import CompletionConfig, replace
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.models.completion import evaluate
+    from npp_tpu_torch.models.pipeline import fit_image
+    from npp_tpu_torch.models.trainer import COMPLETION_TASK
+    from npp_tpu_torch.parallel.runner import fit_images
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    cfg = replace(CompletionConfig(), N_iters=21, i_testset=10, i_print=10)
+    datas = [synthetic_data(s) for s in (0, 1, 2)]
+    out = {}
+
+    def run(label, cfg_, datas_, **kw):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        stats = {}
+        t0 = time.time()
+        states, ctxs = fit_images(cfg_, COMPLETION_TASK, datas_,
+                                  return_ctx=True, device='cuda',
+                                  stats=stats, **kw)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        psnr = []
+        with matmul_precision('float32'):
+            for d, st, ctx in zip(datas_, states, ctxs):
+                e = evaluate(d, st.params, ctx['render'],
+                             st.params.adaptive_pix, cfg_.loss_type,
+                             torch.device('cuda'))
+                psnr.append((e['train_psnr'], e['val_psnr']))
+        log(f'{label}: {len(datas_)} images, {wall:.1f} s wall, buckets '
+            f'{stats["buckets"]}; (train, val) PSNR {psnr}; peak memory '
+            f'{peak / 2**30:.2f} GiB; launches {dict(launches)}')
+        if not np.all(np.isfinite(psnr)) or len(stats['buckets']) != 1:
+            fail(f'{label}: non-finite PSNR or not one bucket')
+        return launches, dict(stats['buckets'][0], total_wall_s=wall,
+                              peak_bytes=peak, psnr_train_val=psnr)
+
+    launches, res = run('batched path', cfg, datas)
+    steps = cfg.N_iters - 1
+    b, n = BATCH_K1
+    m, c = BATCH_K4_PIXEL
+    want = {f'periodic_embed_batched[{b}x{n}x1386]': steps,
+            f'robust_rho_fwd[{m}x{c}]': steps,
+            f'robust_rho_bwd[{m}x{c}]': steps}
+    wrong = {k: launches.get(k, 0) for k, v in want.items()
+             if launches.get(k, 0) != v}
+    key = 'x'.join(map(str, BATCH_K2))
+    if wrong or launches.get(f'bias_snake_fwd[{key}]', 0) <= 0 or \
+            launches.get('periodic_embed', 0) != 0 or res['table'] is not None:
+        fail(f'batched path: launch counts {wrong or dict(launches)}; '
+             f'expected {want}, K2 at {key} and no table')
+    out['batched'] = dict(res, lpips_group_launches=launches.get(
+        batch_lpips_group_name(), 0))
+    all_launches = dict(launches)
+
+    prof = BlockProfile(10, 20)
+    fit_images(cfg, COMPLETION_TASK, datas, device='cuda',
+               milestone_hook=prof)
+    out['batched'].update(profiled_device_ms_per_step=prof.device_ms / 10,
+                          profiled_wall_ms_per_step=prof.wall_ms / 10,
+                          busy_share=prof.device_ms / prof.wall_ms)
+    torch.cuda.reset_peak_memory_stats()
+    seq = fit_image(cfg, datas[0], log_every=cfg.i_print, device='cuda')
+    seq_peak = torch.cuda.max_memory_allocated()
+    sprof = BlockProfile(10, 20)
+    fit_image(cfg, datas[0], eval_hook=sprof, log_every=cfg.i_print,
+              device='cuda')
+    out['sequential_image0'] = dict(
+        ms_per_step=[h['ms_per_step'] for h in seq.history],
+        peak_bytes=seq_peak,
+        profiled_device_ms_per_step=sprof.device_ms / 10,
+        profiled_wall_ms_per_step=sprof.wall_ms / 10,
+        busy_share=sprof.device_ms / sprof.wall_ms)
+    log(f"batched path: steady {res['ms_per_step_steady']:.2f} ms/step for "
+        f"3 images (busy {out['batched']['busy_share']:.3f} profiled, "
+        f"device {out['batched']['profiled_device_ms_per_step']:.2f} "
+        f"ms/step); sequential image 0: {seq.history[-1]['ms_per_step']:.2f} "
+        f"ms/step (busy {out['sequential_image0']['busy_share']:.3f}, device "
+        f"{out['sequential_image0']['profiled_device_ms_per_step']:.2f})")
+
+    launches, res = run('batched bf16-table path',
+                        replace(cfg, N_iters=11, embed_table='bfloat16'),
+                        datas[:2])
+    bname = 'periodic_embed_batched_bf16[{}x{}x1386]'.format(*BATCH_K1_BF16)
+    if launches.get(bname, 0) != 1 or res['table'] != 'bfloat16':
+        fail(f'batched bf16-table path: {bname} launched '
+             f'{launches.get(bname, 0)} times (table {res["table"]})')
+    out['batched_bf16_table'] = res
+    all_launches[bname] = launches[bname]
+
+    wcfg = replace(cfg, N_iters=6, i_testset=5, i_print=5)
+    launches, res = run('batched warp path', wcfg, datas,
+                        per_image=[{'warp_field': True}] * 3)
+    steps = wcfg.N_iters - 1
+    if launches.get('periodic_embed_batched_bwd', 0) != steps or \
+            launches.get(f'periodic_embed_batched[{b}x{n}x1386]', 0) < steps:
+        fail(f'batched warp path: K1 batched {dict(launches)} in {steps} '
+             'steps')
+    out['batched_warp'] = res
+    all_launches['periodic_embed_batched_bwd'] = \
+        launches['periodic_embed_batched_bwd']
+    return all_launches, out
+
+
+def _suite_against_sequential(cfgs, datas, odgts, label, bar):
+    """Each image's sequential run_search, twice: the suite's top-3
+    lattices must equal theirs; with `bar`, its distances must lie within
+    the two runs' spread, or within `bar` relative where they repeat.
+    Returns the walls and the distances."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.proposal.search import run_search
+    walls, report = [], []
+    for cfg, d, rec in zip(cfgs, datas, odgts):
+        runs = []
+        for _ in range(2):
+            t1 = time.time()
+            runs.append(run_search(cfg, device='cuda', data=d, save=False))
+            torch.cuda.synchronize()
+            walls.append(time.time() - t1)
+        for key in ('selected_shifts', 'selected_angles', 'selected_periods'):
+            if rec[key][:3] != runs[0][key][:3] or \
+                    rec[key][:3] != runs[1][key][:3]:
+                fail(f'{label}: {cfg.datadir} {key} top-3 {rec[key][:3]} '
+                     f'against sequential {runs[0][key][:3]} / '
+                     f'{runs[1][key][:3]}')
+        got = np.asarray(rec['distances'])
+        d0, d1 = (np.asarray(r['distances']) for r in runs)
+        rel = float(np.max(np.abs(got - d0) / np.abs(d0)))
+        report.append(dict(suite=got.tolist(), seq=[d0.tolist(), d1.tolist()],
+                           max_rel_diff=rel))
+        if bar is not None:
+            lo, hi = np.minimum(d0, d1), np.maximum(d0, d1)
+            slack = bar * np.abs(d0)
+            if not np.all((got >= lo - slack) & (got <= hi + slack)):
+                fail(f'{label}: {cfg.datadir} distances {got} outside the '
+                     f'sequential runs {d0} / {d1} (bar {bar})')
+    return walls, report
+
+
+def drive_suite_search():
+    """run_search_suite on three synthetic_search_data images (seeds 0-2) at
+    the default SearchConfig, every launch count set to 0 just before and
+    read just after: K2 at (27, 2,048, 256 / 128) and K4 at 2,048 x 81, once
+    each way per step. Then each image's sequential run_search twice: the
+    suite's top-3 lattices must equal the sequential ones. The distances
+    are held to the sequential runs' spread (or 1e-3 relative where those
+    repeat) in full f32 (matmul_precision='float32', a second suite and
+    its sequential runs). Under the default TF32 the stacked GEMMs of 27
+    candidates round otherwise than those of 9, and 300 Adam steps carry
+    that into the distances (3.1e-3 relative at most on an H100), so
+    there they are held to the spread or SUITE_TF32_BAR relative."""
+    import torch
+    from npp_tpu_torch.config import SearchConfig, replace
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.proposal.search import run_search_suite
+    from npp_tpu_torch.utils.synthetic import synthetic_search_data
+    cfgs = [replace(SearchConfig(), datadir=f'suite{s}') for s in (0, 1, 2)]
+    datas = [synthetic_search_data(s) for s in (0, 1, 2)]
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    odgts = run_search_suite(cfgs, device='cuda', datas=datas, save=False,
+                             stats=stats)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = cfgs[0].N_iters
+    m, c = SUITE_K4
+    want = {f'robust_rho_fwd[{m}x{c}]': n, f'robust_rho_bwd[{m}x{c}]': n}
+    for (bb, r, w), per_step in zip(SUITE_K2, (cfgs[0].netdepth, 1)):
+        for k in ('fwd', 'bwd'):
+            want[f'bias_snake_{k}[{bb}x{r}x{w}]'] = per_step * n
+    wrong = {k: launches.get(k, 0) for k, v in want.items()
+             if launches.get(k, 0) != v}
+    if wrong:
+        fail(f'suite search: launch counts {wrong}, expected {want}')
+    seq_walls, report = _suite_against_sequential(
+        cfgs, datas, odgts, 'suite search', SUITE_TF32_BAR)
+    log(f'suite search: 3 images in {wall:.2f} s (rank '
+        f"{stats['rank_s']:.2f} s, fit {stats['fit_ms_per_step']:.2f} "
+        f"ms/step) against sequential searches of "
+        f"{', '.join(f'{w:.2f}' for w in seq_walls)} s; peak "
+        f'{peak / 2**30:.2f} GiB; top-3 equal; distances within the '
+        f"sequential runs' spread or {SUITE_TF32_BAR} (TF32): max rel diff "
+        f"{[round(r['max_rel_diff'], 6) for r in report]}")
+    f32 = [replace(cfg, matmul_precision='float32') for cfg in cfgs]
+    odgts32 = run_search_suite(f32, device='cuda', datas=datas, save=False)
+    _, report32 = _suite_against_sequential(f32, datas, odgts32,
+                                            'suite search (f32)', 1e-3)
+    log(f'suite search in full f32: top-3 equal, distances within the '
+        f"sequential runs' spread or 1e-3: max rel diff "
+        f"{[round(r['max_rel_diff'], 6) for r in report32]}")
+    return launches, dict(wall_s=wall, peak_bytes=peak,
+                          sequential_walls_s=seq_walls,
+                          fit_ms_per_step=stats['fit_ms_per_step'],
+                          rank_s=stats['rank_s'], detect_s=stats['detect_s'],
+                          distances_tf32=report, distances_f32=report32)
+
+
+def _run(label, cmd, timeout=900):
+    """A subprocess of this checkout's Python on the card; fails on a
+    non-zero exit."""
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          timeout=timeout)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        fail(f'{label} exited {proc.returncode}')
+    log(f'{label}: {wall:.1f} s')
+    return proc, wall
+
+
+def drive_entry_points():
+    """The entry points a user runs, from PNG files written by the port's
+    own PNG writer (utils/png.py; this machine has no OpenCV): `cli search`
+    (save=True: the PNGs, the record and the grid pictures), then `cli
+    complete --N_iters 11` on its output, then scripts/torch_run_suite.py
+    --batched --batched-search on a directory of the three examples. The
+    outputs must exist and read back."""
+    import shutil
+    import numpy as np
+    from npp_tpu_torch.utils.io import read_rgb, write_gray, write_rgb
+    from npp_tpu_torch.utils.synthetic import synthetic_search_data
+    base = os.path.join(ROOT, 'npp_tpu_torch', 'build', 'smoke_files')
+    shutil.rmtree(base, ignore_errors=True)
+
+    def write_example(path, d):
+        write_rgb(os.path.join(path, 'masked_img.png'), d['masked_img'])
+        write_rgb(os.path.join(path, 'gt_img.png'), d['gt_img'])
+        write_gray(os.path.join(path, 'unknown_mask.png'), d['unknown_mask'])
+        write_gray(os.path.join(path, 'valid_mask.png'), d['valid_mask'])
+
+    src = os.path.join(base, 'input', 'flagship')
+    write_example(src, synthetic_search_data(0))
+    det = os.path.join(base, 'detected')
+    walls = {}
+    _, walls['cli_search_s'] = _run('cli search', [
+        sys.executable, '-m', 'npp_tpu_torch.cli', 'search', '--datadir',
+        src, '--outdir', det])
+    record = os.path.join(det, 'flagship')
+    for f in ('config.odgt', 'masked_img.png', 'reg_img_0.png'):
+        if not os.path.exists(os.path.join(record, f)):
+            fail(f'cli search wrote no {f}')
+    grid = read_rgb(os.path.join(record, 'reg_img_0.png'))
+    res = os.path.join(base, 'results')
+    _, walls['cli_complete_s'] = _run('cli complete', [
+        sys.executable, '-m', 'npp_tpu_torch.cli', 'complete', '--datadir',
+        record, '--basedir', res, '--N_iters', '11', '--i_testset', '10',
+        '--i_print', '10'])
+    comp = read_rgb(os.path.join(res, 'completion_top3', 'flagship',
+                                 'testset_final', 'pred_rgb_img_comp.png'))
+    if comp.shape != (384, 512, 3) or grid.shape != (384, 512, 3) or \
+            not np.all(np.isfinite(comp)):
+        fail(f'cli outputs of shapes {comp.shape}, {grid.shape}')
+    suite_in = os.path.join(base, 'suite')
+    for s in (0, 1, 2):
+        write_example(os.path.join(suite_in, 'completion', 'input', f'ex{s}'),
+                      synthetic_search_data(s))
+    out = os.path.join(base, 'suite_out')
+    _, walls['suite_script_s'] = _run('torch_run_suite.py', [
+        sys.executable, os.path.join(ROOT, 'scripts', 'torch_run_suite.py'),
+        '--input-root', suite_in, '--out', out, '--tasks', 'completion',
+        '--batched', '--batched-search', '--iters-scale', '0.0055'])
+    with open(os.path.join(out, 'summary.json')) as f:
+        summary = json.load(f)
+    recs = summary['tasks']['completion']
+    if sorted(recs) != ['ex0', 'ex1', 'ex2'] or not all(
+            np.isfinite(r['val_psnr']) and np.isfinite(r['val_lpips'])
+            for r in recs.values()):
+        fail(f'torch_run_suite.py summary {recs}')
+    for name in recs:
+        read_rgb(os.path.join(out, 'completion', 'results',
+                              'completion_top3', name, 'testset_final',
+                              'pred_rgb_img_comp.png'))
+    log(f'entry points: suite records {recs}; phases {summary["phases"]}')
+    return dict(walls, suite=recs, suite_phases=summary['phases'],
+                suite_fit=summary.get('fit_batched'),
+                suite_search=summary.get('search_batched'))
+
+
 def main():
     name, smi = phase_device()
     import torch
@@ -1491,7 +2136,8 @@ def main():
             'torch.backends.cudnn.allow_tf32 = False)')
         kernels = check_k1(gen) + check_k1_bwd(gen) + check_k2(gen) + \
             check_k4(gen) + check_k4_wide(gen) + check_k1_seg(gen) + \
-            k2_entries(gen, SEG_K2, SEG_K2_NAMES)
+            k2_entries(gen, SEG_K2, SEG_K2_NAMES) + check_k1_batched(gen) + \
+            check_batch_kernels(gen)
         for k in kernels:
             err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
                    f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
@@ -1510,7 +2156,8 @@ def main():
         if bad:
             fail(f'kernels disagree with their plain versions: {bad}')
         steps = dict(check_fit_step(), remapping=check_remap_step(),
-                     segmentation=check_seg_step())
+                     segmentation=check_seg_step(),
+                     batched=check_batched_step())
         blur = check_blur_map()
         slic = check_slic()
         det, i_train, img = check_search_detection()
@@ -1521,12 +2168,14 @@ def main():
     on_remap = {k['name'] for k in kernels if '[6x' in k['name']}
     on_warp = {'periodic_embed_bwd'}
     on_seg = seg_names()
+    on_batch, on_suite = batch_names(), suite_names()
     log("main path and bf16-table path: matmul_precision='bfloat16' (the "
         "default), TF32 on in the steps and the render")
     main_launches, history, peak, _ = drive(
         'main path', [k['name'] for k in kernels
                       if k['name'] != bf16_name and k['name'] not in
-                      on_search | on_remap | on_warp | on_seg],
+                      on_search | on_remap | on_warp | on_seg | on_batch |
+                      on_suite],
         N_iters=21)
     bf16_launches, bf16_history, _, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
@@ -1553,8 +2202,18 @@ def main():
         "the steps and the render, the refinement's spatial LPIPS-alex in "
         "full f32")
     seg_launches, seg = drive_segment()
+    log("batched paths: fit_images at the default CompletionConfig widths, "
+        "TF32 in the steps and the render")
+    batch_launches, batched = drive_batched()
+    log("suite search: run_search_suite at the default SearchConfig")
+    suite_launches, suite = drive_suite_search()
+    log("entry points from files: cli search, cli complete and "
+        "scripts/torch_run_suite.py in subprocesses on the card")
+    entry = drive_entry_points()
     for k in kernels:
         k['launches'] = (bf16_launches if k['name'] == bf16_name else
+                         batch_launches if k['name'] in on_batch else
+                         suite_launches if k['name'] in on_suite else
                          seg_launches if k['name'] in on_seg else
                          search_launches if k['name'] in on_search else
                          remap_launches if k['name'] in on_remap else
@@ -1577,6 +2236,8 @@ def main():
                       'remap': remap, 'heldout': heldout, 'warp': warp,
                       'blur_map': blur, 'steps_card_vs_cpu': steps,
                       'segmentation': seg, 'slic': slic,
+                      'batched': batched, 'suite_search': suite,
+                      'entry_points': entry,
                       'search': search,
                       'search_chained': {
                           'patch_size': chained.patch_size,

@@ -12,7 +12,8 @@ valid_mask.png and writes O/<name>/config.odgt and its PNGs, which
 record and its gt_img and valid_mask the same way. Any SearchConfig /
 CompletionConfig / RemappingConfig / SegmentationConfig field can be
 overridden with --<field> <value>; booleans accept true/false. Runs on the
-card unless --device cpu is given. Reading and writing PNGs needs OpenCV.
+card unless --device cpu is given. PNGs are read and written by the
+port's own codec (utils/png.py), so the CLI runs where OpenCV is absent.
 """
 from __future__ import annotations
 

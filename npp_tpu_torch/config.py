@@ -57,7 +57,9 @@ class BaseConfig:
                                         # dtype once per block of steps and
                                         # gather rows per step
     embed_table_max_mb: int = 2048      # no table (K1 on the fly) when it
-                                        # would exceed this many MB
+                                        # would exceed this many MB; in
+                                        # parallel/runner.py::fit_images the
+                                        # B tables of a bucket together
     embed_table_degrade: bool = False   # a bf16 table where an f32 one
                                         # would exceed embed_table_max_mb
     aot_cache_dir: str = ""             # ignored by the port (JAX executable
@@ -142,10 +144,13 @@ class SearchConfig(BaseConfig):
     contextual_weight: float = 1.0
     perceptual_weight: float = 30.0
     N_iters: int = 300
-    rank_pad_candidates: int = 9        # ignored by the port: npp_tpu pads
-                                        # the candidate axis to reuse its
-                                        # executables; distances do not
-                                        # depend on it
+    rank_pad_candidates: int = 9        # the suite search stacks every
+                                        # image's candidates padded to
+                                        # max(the most any image has, this),
+                                        # as npp_tpu's does; the padding is
+                                        # discarded and distances do not
+                                        # depend on it. The one-image
+                                        # search pads nothing
     crop_bucket: int = 64               # the eval crop is rounded up to a
                                         # multiple of this (0 = off); it
                                         # changes the scores

@@ -54,6 +54,14 @@
 // gradient values (neighbouring threads, neighbouring channels); the items'
 // products go to shared memory and one thread per row sums them in channel
 // order: no atomics, the same bits on every run.
+//
+// Batched entries (`npp_periodic_embed_batched`, `_bwd_batched`): the
+// multi-image fit (parallel/batch.py) embeds B images in one launch, each
+// with its own proposals (B, K, 2) and its own normalisation dims (B, 2),
+// all device arrays, so a launch copies nothing from the host. blockIdx.y
+// is the image: its coordinates, output and dims are offset by it, and the
+// rest of the kernel is the single-image one. Bound: memory, as above, for
+// B times the rows (0.99 GB in f32 for 3 x 59,392 rows of 1,386).
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -137,13 +145,24 @@ periodic_embed_kernel(const float* __restrict__ coords,
                       const float* __restrict__ offsets, int n_offsets,
                       const float* __restrict__ angle_offsets,
                       int n_angle_offsets, long long n, int k, float h,
-                      float w, int tile_rows, T* __restrict__ out) {
+                      float w, const float* __restrict__ res, int tile_rows,
+                      T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int half = 1 + n_scales * n_offsets * n_angle_offsets * 2;
   const int P = 2 * half;
   const int D = P * (1 + 2 * n_bands);
   const int KP = k * P;
   const int KD = k * D;
+  // image blockIdx.y of a batched launch: its rows, proposals and dims
+  const long long img = blockIdx.y;
+  coords += img * n * 2;
+  angles += img * 2 * k;
+  periods += img * 2 * k;
+  out += img * n * KD;
+  if (res != nullptr) {
+    h = res[2 * img];
+    w = res[2 * img + 1];
+  }
   // shared memory: [tile of tile_rows * KD values][K*P channels][bands]
   T* tile = reinterpret_cast<T*>(smem);
   Channel* chan = reinterpret_cast<Channel*>(
@@ -203,8 +222,8 @@ template <typename T>
 int launch(const float* coords, const float* angles, const float* periods,
            const float* bands, int n_bands, const float* scales, int n_scales,
            const float* offsets, int n_offsets, const float* angle_offsets,
-           int n_angle_offsets, long long n, int k, float h, float w, T* out,
-           cudaStream_t stream) {
+           int n_angle_offsets, long long n, int k, float h, float w,
+           const float* res, int nb, T* out, cudaStream_t stream) {
   const int P = 2 * (1 + n_scales * n_offsets * n_angle_offsets * 2);
   const long long row_bytes =
       (long long)k * P * (1 + 2 * n_bands) * (long long)sizeof(T);
@@ -225,10 +244,12 @@ int launch(const float* coords, const float* angles, const float* periods,
   const long long items = tile_rows * k * P;
   const long long rounds = (items + kMaxThreads - 1) / kMaxThreads;
   const int threads = (int)(((items + rounds - 1) / rounds + 31) / 32 * 32);
-  periodic_embed_kernel<T><<<(unsigned)blocks, threads, smem, stream>>>(
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
+  periodic_embed_kernel<T><<<dim3((unsigned)blocks, (unsigned)nb), threads,
+                             smem, stream>>>(
       coords, angles, periods, bands, n_bands, scales, n_scales, offsets,
-      n_offsets, angle_offsets, n_angle_offsets, n, k, h, w, (int)tile_rows,
-      out);
+      n_offsets, angle_offsets, n_angle_offsets, n, k, h, w, res,
+      (int)tile_rows, out);
   return (int)cudaGetLastError();
 }
 
@@ -245,14 +266,25 @@ periodic_embed_bwd_kernel(const float* __restrict__ grad,
                           const float* __restrict__ offsets, int n_offsets,
                           const float* __restrict__ angle_offsets,
                           int n_angle_offsets, long long n, int k, float h,
-                          float w, int tile_rows,
-                          float* __restrict__ dcoords) {
+                          float w, const float* __restrict__ res,
+                          int tile_rows, float* __restrict__ dcoords) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int half = 1 + n_scales * n_offsets * n_angle_offsets * 2;
   const int P = 2 * half;
   const int D = P * (1 + 2 * n_bands);
   const int KP = k * P;
   const int KD = k * D;
+  // image blockIdx.y of a batched launch
+  const long long img = blockIdx.y;
+  grad += img * n * KD;
+  coords += img * n * 2;
+  angles += img * 2 * k;
+  periods += img * 2 * k;
+  dcoords += img * n * 2;
+  if (res != nullptr) {
+    h = res[2 * img];
+    w = res[2 * img + 1];
+  }
   // shared memory: [K*P channels][bands][tile_rows * KP * 2 terms]
   Channel* chan = reinterpret_cast<Channel*>(smem);
   float* band = reinterpret_cast<float*>(chan + KP);
@@ -309,16 +341,16 @@ periodic_embed_bwd_kernel(const float* __restrict__ grad,
 
 }  // namespace
 
-// dcoords (n, 2) float32: the gradient of the f32 embedding's loss in the
-// coordinates, from grad (n, k * D) float32. Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
-extern "C" int npp_periodic_embed_bwd(
-    const float* grad, const float* coords, const float* angles,
-    const float* periods, const float* bands, int n_bands,
-    const float* scales, int n_scales, const float* offsets, int n_offsets,
-    const float* angle_offsets, int n_angle_offsets, long long n, int k,
-    float h, float w, float* dcoords, void* stream) {
+namespace {
+
+int launch_bwd(const float* grad, const float* coords, const float* angles,
+               const float* periods, const float* bands, int n_bands,
+               const float* scales, int n_scales, const float* offsets,
+               int n_offsets, const float* angle_offsets, int n_angle_offsets,
+               long long n, int k, float h, float w, const float* res, int nb,
+               float* dcoords, void* stream) {
   if (n == 0) return 0;
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   const int P = 2 * (1 + n_scales * n_offsets * n_angle_offsets * 2);
   const int KP = k * P;
   // rows per block: at most two rounds of kMaxThreads items; threads split
@@ -332,12 +364,61 @@ extern "C" int npp_periodic_embed_bwd(
                       (size_t)items * 2 * sizeof(float);
   if (smem > (size_t)kSmemBytes) return (int)cudaErrorInvalidValue;
   const long long blocks = (n + tile_rows - 1) / tile_rows;
-  periodic_embed_bwd_kernel<<<(unsigned)blocks, threads, smem,
-                              (cudaStream_t)stream>>>(
+  periodic_embed_bwd_kernel<<<dim3((unsigned)blocks, (unsigned)nb), threads,
+                              smem, (cudaStream_t)stream>>>(
       grad, coords, angles, periods, bands, n_bands, scales, n_scales,
-      offsets, n_offsets, angle_offsets, n_angle_offsets, n, k, h, w,
+      offsets, n_offsets, angle_offsets, n_angle_offsets, n, k, h, w, res,
       (int)tile_rows, dcoords);
   return (int)cudaGetLastError();
+}
+
+int launch_fwd(const float* coords, const float* angles, const float* periods,
+               const float* bands, int n_bands, const float* scales,
+               int n_scales, const float* offsets, int n_offsets,
+               const float* angle_offsets, int n_angle_offsets, long long n,
+               int k, float h, float w, const float* res, int nb, void* out,
+               int out_bf16, void* stream) {
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define NPP_K1_ARGS                                                        \
+  coords, angles, periods, bands, n_bands, scales, n_scales, offsets,      \
+      n_offsets, angle_offsets, n_angle_offsets, n, k, h, w, res, nb
+  const int status =
+      out_bf16 ? launch(NPP_K1_ARGS, static_cast<__nv_bfloat16*>(out), st)
+               : launch(NPP_K1_ARGS, static_cast<float*>(out), st);
+#undef NPP_K1_ARGS
+  return status;
+}
+
+}  // namespace
+
+// dcoords (n, 2) float32: the gradient of the f32 embedding's loss in the
+// coordinates, from grad (n, k * D) float32. Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+extern "C" int npp_periodic_embed_bwd(
+    const float* grad, const float* coords, const float* angles,
+    const float* periods, const float* bands, int n_bands,
+    const float* scales, int n_scales, const float* offsets, int n_offsets,
+    const float* angle_offsets, int n_angle_offsets, long long n, int k,
+    float h, float w, float* dcoords, void* stream) {
+  return launch_bwd(grad, coords, angles, periods, bands, n_bands, scales,
+                    n_scales, offsets, n_offsets, angle_offsets,
+                    n_angle_offsets, n, k, h, w, nullptr, 1, dcoords, stream);
+}
+
+// The batched backward: grad (nb, n, k * D), coords (nb, n, 2), angles and
+// periods (nb, k, 2), res (nb, 2) = each image's (h, w), dcoords
+// (nb, n, 2), all float32 on the card.
+extern "C" int npp_periodic_embed_bwd_batched(
+    const float* grad, const float* coords, const float* angles,
+    const float* periods, const float* bands, int n_bands,
+    const float* scales, int n_scales, const float* offsets, int n_offsets,
+    const float* angle_offsets, int n_angle_offsets, const float* res,
+    long long n, int k, int nb, float* dcoords, void* stream) {
+  return launch_bwd(grad, coords, angles, periods, bands, n_bands, scales,
+                    n_scales, offsets, n_offsets, angle_offsets,
+                    n_angle_offsets, n, k, 0.0f, 0.0f, res, nb, dcoords,
+                    stream);
 }
 
 // out: (n, k * D) float32 (out_bf16 = 0) or bfloat16 (out_bf16 = 1).
@@ -348,14 +429,20 @@ extern "C" int npp_periodic_embed(
     const float* offsets, int n_offsets, const float* angle_offsets,
     int n_angle_offsets, long long n, int k, float h, float w, void* out,
     int out_bf16, void* stream) {
-  if (n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-#define NPP_K1_ARGS                                                        \
-  coords, angles, periods, bands, n_bands, scales, n_scales, offsets,      \
-      n_offsets, angle_offsets, n_angle_offsets, n, k, h, w
-  const int status =
-      out_bf16 ? launch(NPP_K1_ARGS, static_cast<__nv_bfloat16*>(out), st)
-               : launch(NPP_K1_ARGS, static_cast<float*>(out), st);
-#undef NPP_K1_ARGS
-  return status;
+  return launch_fwd(coords, angles, periods, bands, n_bands, scales, n_scales,
+                    offsets, n_offsets, angle_offsets, n_angle_offsets, n, k,
+                    h, w, nullptr, 1, out, out_bf16, stream);
+}
+
+// The batched forward: coords (nb, n, 2), angles and periods (nb, k, 2),
+// res (nb, 2) = each image's (h, w), out (nb, n, k * D); one launch.
+extern "C" int npp_periodic_embed_batched(
+    const float* coords, const float* angles, const float* periods,
+    const float* bands, int n_bands, const float* scales, int n_scales,
+    const float* offsets, int n_offsets, const float* angle_offsets,
+    int n_angle_offsets, const float* res, long long n, int k, int nb,
+    void* out, int out_bf16, void* stream) {
+  return launch_fwd(coords, angles, periods, bands, n_bands, scales, n_scales,
+                    offsets, n_offsets, angle_offsets, n_angle_offsets, n, k,
+                    0.0f, 0.0f, res, nb, out, out_bf16, stream);
 }

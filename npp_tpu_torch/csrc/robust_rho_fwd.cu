@@ -3,7 +3,7 @@
 //   r[m] = sum_c w_c * rho(x[m, c], alpha_c, s_c),
 //
 // for the `loss_otherwise` branch of general_lossfun with its beta_safe /
-// alpha_safe clamps, for up to five (x, alpha, s, w, r) segments in one
+// alpha_safe clamps, for up to sixteen (x, alpha, s, w, r) segments in one
 // launch: the five LPIPS layers of a 'same' step go out together. Replaces
 // the XLA-fused per-element rho of `nllfun` (npp_tpu/losses/robust.py:63-81,
 // 134-138). kernels/robust_rho.py::rho_rows_plain is the same function in
@@ -51,7 +51,9 @@ constexpr float kEps = 1.1920928955078125e-07f;   // np.finfo(np.float32).eps
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxBlocksPerSm = 2048 / kThreads;
-constexpr int kMaxSegments = 5;
+// segments of one launch: the five LPIPS layers of up to three images
+// (parallel/batch.py), each image with its own alpha and scale
+constexpr int kMaxSegments = 16;
 constexpr int kMaxChannels = 1024;
 constexpr int kPerThread = 4;                   // flat path: values a thread
 constexpr int kTile = kThreads * kPerThread;    // holds in one tile
@@ -307,7 +309,7 @@ struct RhoSegment {
   float* part;   // c > 1024: m * ceil(c / 2048) floats of scratch
 };
 
-// r of each of the n (1 to 5) segments, in one launch on `stream` (and,
+// r of each of the n (1 to 16) segments, in one launch on `stream` (and,
 // where a segment has more than 1024 channels, a second small one that
 // finishes the wide rows). Returns cudaGetLastError() (0 on success).
 extern "C" int npp_robust_rho_fwd_group(const RhoSegment* segs, int n,

@@ -8,9 +8,14 @@ require a gradient, the f32 embedding is a `torch.autograd.Function` whose
 backward is K1's backward kernel (`npp_periodic_embed_bwd`, the gradient in
 the coordinates; angles, periods and bands are constants).
 
+`periodic_embed_batched` embeds B images in one launch of the batched
+entries (the multi-image fit, parallel/batch.py): coordinates (B, N, 2),
+each image's proposals (B, K, 2) and normalisation dims (B, 2) on the card,
+so that no launch copies anything from the host.
+
 A CUDA tensor goes through the kernels or the call raises; a CPU tensor goes
-through `periodic_embed_plain`, the same function in plain PyTorch (its
-coordinate gradient by autograd).
+through `periodic_embed_plain` (`periodic_embed_batched_plain`), the same
+function in plain PyTorch (its coordinate gradient by autograd).
 """
 from __future__ import annotations
 
@@ -26,7 +31,10 @@ from .build import check_cuda, load_library
 # the forward counts by output shape ('periodic_embed[81920x1386]'), which
 # kernels.launch_counts() also sums under the name
 LAUNCHES = collections.Counter({'periodic_embed': 0, 'periodic_embed_bf16': 0,
-                                'periodic_embed_bwd': 0})
+                                'periodic_embed_bwd': 0,
+                                'periodic_embed_batched': 0,
+                                'periodic_embed_batched_bf16': 0,
+                                'periodic_embed_batched_bwd': 0})
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -42,6 +50,14 @@ def _lib() -> ctypes.CDLL:
         bwd.argtypes = [p, p, p, p, p, i, p, i, p, i, p, i, ctypes.c_longlong,
                         i, ctypes.c_float, ctypes.c_float, p, p]
         bwd.restype = ctypes.c_int
+        fwd_b = lib.npp_periodic_embed_batched
+        fwd_b.argtypes = [p, p, p, p, i, p, i, p, i, p, i, p,
+                          ctypes.c_longlong, i, i, p, i, p]
+        fwd_b.restype = ctypes.c_int
+        bwd_b = lib.npp_periodic_embed_bwd_batched
+        bwd_b.argtypes = [p, p, p, p, p, i, p, i, p, i, p, i, p,
+                          ctypes.c_longlong, i, i, p, p]
+        bwd_b.restype = ctypes.c_int
     return lib
 
 
@@ -80,20 +96,50 @@ def periodic_embed_plain(coords_yx: torch.Tensor, angles: torch.Tensor,
     return torch.cat(per, dim=-1).to(out_dtype)
 
 
+def periodic_embed_batched_plain(coords_yx: torch.Tensor,
+                                 angles: torch.Tensor, periods: torch.Tensor,
+                                 bands: Optional[torch.Tensor],
+                                 freq_scales: Sequence[float],
+                                 freq_offsets: Sequence[float],
+                                 angle_offsets: Sequence[float],
+                                 res: torch.Tensor,
+                                 out_dtype: torch.dtype = torch.float32
+                                 ) -> torch.Tensor:
+    """The batched kernels' function in plain PyTorch: coords (B, N, 2),
+    angles and periods (B, K, 2), res (B, 2) -> (B, N, K * D), image b
+    equal to periodic_embed_plain of its own rows, proposals and dims."""
+    from ..nn.embedder import fourier_encode, periodic_warp
+    hw = (res[:, 0, None, None], res[:, 1, None, None])
+    per = []
+    for k in range(angles.shape[1]):
+        p = periodic_warp(coords_yx, angles[:, k], periods[:, k], freq_scales,
+                          freq_offsets, angle_offsets, hw, include_input=True)
+        per.append(p if bands is None else fourier_encode(p, bands))
+    return torch.cat(per, dim=-1).to(out_dtype)
+
+
 class _Args:
-    """The kernels' constant arguments on the card, checked once per call."""
+    """The kernels' constant arguments on the card, checked once per call.
+    With `res` a tensor, the batched form: coords (B, N, 2), angles and
+    periods (B, K, 2), res (B, 2)."""
 
     def __init__(self, coords_yx, angles, periods, bands, freq_scales,
                  freq_offsets, angle_offsets, res):
         dev = coords_yx.device
         if dev.type != 'cuda':
             raise RuntimeError(f'periodic_embed: unsupported device {dev}')
-        if coords_yx.dim() != 2 or coords_yx.shape[1] != 2:
-            raise ValueError(
-                f'coords must be (N, 2), got {tuple(coords_yx.shape)}')
-        self.k = angles.shape[0]
-        if angles.shape != (self.k, 2) or periods.shape != (self.k, 2):
-            raise ValueError('angles and periods must both be (K, 2)')
+        self.nb = int(coords_yx.shape[0]) if torch.is_tensor(res) else 0
+        lead = (self.nb,) if self.nb else ()
+        if coords_yx.dim() != len(lead) + 2 or coords_yx.shape[-1] != 2:
+            raise ValueError(f'coords must be {"(B, N, 2)" if lead else "(N, 2)"}'
+                             f', got {tuple(coords_yx.shape)}')
+        self.k = angles.shape[-2]
+        if angles.shape != lead + (self.k, 2) or \
+                periods.shape != lead + (self.k, 2):
+            raise ValueError('angles and periods must both be '
+                             f'{"(B, K, 2)" if lead else "(K, 2)"}')
+        if self.nb and res.shape != (self.nb, 2):
+            raise ValueError(f'res must be (B, 2), got {tuple(res.shape)}')
 
         def vec(v):
             if not torch.is_tensor(v):      # a tuple of the config: copied once
@@ -109,7 +155,11 @@ class _Args:
         self.counts = (len(freq_scales), len(freq_offsets),
                        len(angle_offsets))
         self.d = embed_dims(self.n_bands, *self.counts)[1]
-        self.res = (float(res[0]), float(res[1]))
+        if self.nb:
+            # a device tensor already (stack_embedders): no copy per launch
+            self.res_t = vec(res)
+        else:
+            self.res = (float(res[0]), float(res[1]))
 
     def consts(self):
         """The C functions' arguments from angles to angle_offsets."""
@@ -149,6 +199,56 @@ def periodic_embed_bwd_launch(grad: torch.Tensor, coords: torch.Tensor,
     check_cuda(status, 'periodic_embed_bwd')
     LAUNCHES['periodic_embed_bwd'] += 1
     return dcoords
+
+
+def _fwd_batched_launch(coords: torch.Tensor, a: _Args,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    n = coords.shape[1]
+    out = torch.empty((a.nb, n, a.k * a.d), dtype=out_dtype, device=a.dev)
+    bf16 = out_dtype == torch.bfloat16
+    status = _lib().npp_periodic_embed_batched(
+        coords.data_ptr(), *a.consts(), a.res_t.data_ptr(), n, a.k, a.nb,
+        out.data_ptr(), int(bf16), torch.cuda.current_stream(a.dev).cuda_stream)
+    check_cuda(status, 'periodic_embed_batched')
+    name = 'periodic_embed_batched_bf16' if bf16 else 'periodic_embed_batched'
+    LAUNCHES[f'{name}[{a.nb}x{n}x{a.k * a.d}]'] += 1
+    return out
+
+
+def periodic_embed_bwd_batched_launch(grad: torch.Tensor,
+                                      coords: torch.Tensor,
+                                      a: _Args) -> torch.Tensor:
+    """dL/d(y, x) (B, N, 2) from the f32 embeddings' gradient
+    (B, N, K * D) on the card: K1's batched backward kernel."""
+    grad = grad.to(torch.float32).contiguous()
+    n = coords.shape[1]
+    if grad.shape != (a.nb, n, a.k * a.d):
+        raise ValueError(f'grad must be {(a.nb, n, a.k * a.d)}, got '
+                         f'{tuple(grad.shape)}')
+    dcoords = torch.empty((a.nb, n, 2), dtype=torch.float32, device=a.dev)
+    status = _lib().npp_periodic_embed_bwd_batched(
+        grad.data_ptr(), coords.data_ptr(), *a.consts(), a.res_t.data_ptr(),
+        n, a.k, a.nb, dcoords.data_ptr(),
+        torch.cuda.current_stream(a.dev).cuda_stream)
+    check_cuda(status, 'periodic_embed_bwd_batched')
+    LAUNCHES['periodic_embed_batched_bwd'] += 1
+    return dcoords
+
+
+class _PeriodicEmbedBatched(torch.autograd.Function):
+    """K1's batched forward in f32; its backward is the batched backward
+    kernel, in the coordinates only."""
+
+    @staticmethod
+    def forward(ctx, coords, a):
+        ctx.save_for_backward(coords)
+        ctx.args = a
+        return _fwd_batched_launch(coords, a, torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (coords,) = ctx.saved_tensors
+        return periodic_embed_bwd_batched_launch(grad, coords, ctx.args), None
 
 
 class _PeriodicEmbed(torch.autograd.Function):
@@ -192,3 +292,32 @@ def periodic_embed(coords_yx: torch.Tensor, angles: torch.Tensor,
                              'only')
         return _PeriodicEmbed.apply(coords, a)
     return _fwd_launch(coords, a, out_dtype)
+
+
+def periodic_embed_batched(coords_yx: torch.Tensor, angles: torch.Tensor,
+                           periods: torch.Tensor,
+                           bands: Optional[torch.Tensor],
+                           freq_scales: Sequence[float],
+                           freq_offsets: Sequence[float],
+                           angle_offsets: Sequence[float], res: torch.Tensor,
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """B images at once: coords (B, N, 2) f32 (y, x), angles and periods
+    (B, K, 2), res (B, 2) each image's (h, w) -> (B, N, K * D) in
+    out_dtype, in one launch. Differentiable in the coordinates in
+    float32."""
+    if out_dtype not in OUT_DTYPES:
+        raise ValueError(f'periodic_embed writes {OUT_DTYPES}, not {out_dtype}')
+    if coords_yx.device.type == 'cpu':
+        return periodic_embed_batched_plain(coords_yx, angles, periods, bands,
+                                            freq_scales, freq_offsets,
+                                            angle_offsets, res, out_dtype)
+    a = _Args(coords_yx, angles, periods, bands, freq_scales, freq_offsets,
+              angle_offsets, res)
+    coords = coords_yx.to(torch.float32).contiguous()
+    if coords.requires_grad and torch.is_grad_enabled():
+        if out_dtype != torch.float32:
+            raise ValueError('periodic_embed is differentiable in float32 '
+                             'only')
+        return _PeriodicEmbedBatched.apply(coords, a)
+    return _fwd_batched_launch(coords, a, out_dtype)

@@ -13,8 +13,9 @@ whole function. The per-channel constant log s_c + log Z(alpha_c) and the
 latent -> (alpha, s) maps stay plain torch with autograd (losses/robust.py).
 
 Bound: memory. The forward reads x (M, C) once and writes r (M,), for up
-to five (x, alpha, s, w) segments in one launch (`rho_rows_group`: the five
-LPIPS layers of a step, or the style loss's three layers). The backward
+to sixteen (x, alpha, s, w) segments in one launch (`rho_rows_group`: the
+five LPIPS layers of a step, of up to three images in the multi-image fit,
+or the style loss's three layers). The backward
 reads x and g and writes dx, one launch per segment, and sums dalpha and ds
 per channel on the device in a fixed order. Rows wider than 1,024 channels
 (the style loss's flattened Grams, (6, 4,096) to (6, 65,536)) take each
@@ -42,7 +43,7 @@ from .build import check_cuda, load_library
 # 'robust_rho_fwd_group[MxC,MxC,...]' or 'robust_rho_bwd[MxC]'
 LAUNCHES = collections.Counter()
 F32_EPS = float(np.finfo(np.float32).eps)
-MAX_SEGMENTS = 5     # segments of one forward launch (csrc/robust_rho_fwd.cu)
+MAX_SEGMENTS = 16    # segments of one forward launch (csrc/robust_rho_fwd.cu)
 MAX_NARROW = 1024    # wider rows take the forward's wide path, whose
 WIDE_CHUNK = 2048    # blocks each sum this many columns of a row
 

@@ -21,12 +21,21 @@ from ..nn.pretrained import load_tower_params
 
 def compute_cosine_distance(x: torch.Tensor, y: torch.Tensor,
                             feat_valid: Optional[torch.Tensor] = None,
-                            per_sample: bool = False) -> torch.Tensor:
+                            per_sample: bool = False,
+                            groups: Optional[int] = None) -> torch.Tensor:
     """x, y: (N, H, W, C) -> dist (N, HW_x, HW_y)
     (reference: functional.py:127-163). feat_valid: optional (N, H, W)
     mask; the mean-shift statistic then uses valid positions only. The
     statistic is over the batch and space, or over each sample's space
-    with per_sample (each sample then as if alone)."""
+    with per_sample (each sample then as if alone), or with `groups` over
+    each of that many equal groups of samples (the multi-image fit: each
+    image's batch as if alone)."""
+    if groups is not None:
+        n, h, w, c = y.shape
+        y_mu = torch.mean(y.reshape(groups, -1, h, w, c), dim=(1, 2, 3),
+                          keepdim=True)
+        y_mu = y_mu.expand(groups, n // groups, 1, 1, c).reshape(n, 1, 1, c)
+        return _cosine_from_mean(x, y, y_mu)
     dims = (1, 2) if per_sample else (0, 1, 2)
     if feat_valid is not None:
         v = feat_valid[..., None].to(y.dtype)
@@ -34,6 +43,11 @@ def compute_cosine_distance(x: torch.Tensor, y: torch.Tensor,
                 / torch.clamp(torch.sum(v, dim=dims, keepdim=True), min=1.0))
     else:
         y_mu = torch.mean(y, dim=dims, keepdim=True)
+    return _cosine_from_mean(x, y, y_mu)
+
+
+def _cosine_from_mean(x: torch.Tensor, y: torch.Tensor,
+                      y_mu: torch.Tensor) -> torch.Tensor:
     xc = x - y_mu
     yc = y - y_mu
     xn = xc / (torch.linalg.vector_norm(xc, dim=-1, keepdim=True) + 1e-12)
@@ -58,17 +72,22 @@ def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
                     weight: Optional[torch.Tensor] = None,
                     valid: Optional[torch.Tensor] = None,
                     feat_valid: Optional[torch.Tensor] = None,
-                    per_sample: bool = False) -> torch.Tensor:
+                    per_sample: bool = False,
+                    groups: Optional[int] = None) -> torch.Tensor:
     """CX loss on NHWC feature maps (reference: functional.py:9-63).
 
     valid: optional (N,) bool — invalid samples contribute 0 and the
     unweighted aggregation is a masked mean over the survivors.
     feat_valid: optional (N, H, W) position mask applied to both x and y.
     per_sample: return (N,) values, each sample's loss as if it were called
-    alone (weight and valid are then not taken)."""
+    alone (weight and valid are then not taken). groups: the samples are
+    that many equal groups (images), and the result is (groups,), each
+    group's loss as if it were called alone."""
     if per_sample and (weight is not None or valid is not None):
         raise ValueError('per_sample takes no weight or valid')
-    dist_raw = compute_cosine_distance(x, y, feat_valid, per_sample)
+    if groups is not None and feat_valid is not None:
+        raise ValueError('groups take no feat_valid')
+    dist_raw = compute_cosine_distance(x, y, feat_valid, per_sample, groups)
     if feat_valid is not None:
         fv = feat_valid.reshape(feat_valid.shape[0], -1)  # (N, P)
         fvd = fv.to(dist_raw.dtype)
@@ -83,16 +102,25 @@ def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
         cx = torch.mean(torch.amax(cx, dim=1), dim=1)          # (N,)
     if per_sample:
         return -torch.log(cx + 1e-5)
+    g = 1 if groups is None else groups
+
+    def per_group(t):
+        return t.reshape(g, -1)
+
     if weight is not None:
         term = -torch.log(cx * weight + 1e-5)
         if valid is not None:
             term = term * valid
-        return torch.sum(term)
-    term = -torch.log(cx + 1e-5)
-    if valid is not None:
-        v = valid.to(term.dtype)
-        return torch.sum(term * v) / torch.clamp(torch.sum(v), min=1.0)
-    return torch.mean(term)
+        out = torch.sum(per_group(term), dim=1)
+    else:
+        term = -torch.log(cx + 1e-5)
+        if valid is not None:
+            v = per_group(valid.to(term.dtype))
+            out = torch.sum(per_group(term) * v, dim=1) / \
+                torch.clamp(torch.sum(v, dim=1), min=1.0)
+        else:
+            out = torch.mean(per_group(term), dim=1)
+    return out if groups is not None else out[0]
 
 
 class ContextualLoss:
@@ -117,12 +145,14 @@ class ContextualLoss:
                  weight: Optional[torch.Tensor] = None,
                  valid: Optional[torch.Tensor] = None,
                  spatial_mask: Optional[torch.Tensor] = None,
-                 per_sample: bool = False) -> torch.Tensor:
+                 per_sample: bool = False,
+                 groups: Optional[int] = None) -> torch.Tensor:
         """spatial_mask: optional (N, H, W, 1) image-resolution mask of real
         content; feature positions with (about) no overlap with it are left
         out of the match (npp_tpu/losses/contextual.py:154-186: the
         ranking's cx_mask_pad). per_sample: (N,) values, each as if its
-        sample were called alone."""
+        sample were called alone. groups: (groups,) values, each group of
+        N / groups samples as if called alone (the multi-image fit)."""
         fx, fy = self.features(x), self.features(y)
         feat_valid = None
         if spatial_mask is not None:
@@ -132,7 +162,8 @@ class ContextualLoss:
             feat_valid = torch.broadcast_to(
                 (frac > 1e-3).to(torch.float32), (n, fh, fw))
         return contextual_loss(fx, fy, self.band_width, weight, valid=valid,
-                               feat_valid=feat_valid, per_sample=per_sample)
+                               feat_valid=feat_valid, per_sample=per_sample,
+                               groups=groups)
 
 
 def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:

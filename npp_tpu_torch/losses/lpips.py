@@ -55,6 +55,10 @@ class LPIPS:
     normalize=True maps [0,1] inputs to [-1,1] first; a one-channel input
     broadcasts against the three-channel shift and scale, as in JAX.
     adaptive: per-layer AdaptiveLossParams (trainable) for use_robust.
+    images: the multi-image fit's form (parallel/batch.py): the samples
+    are len(images) equal groups, group g belonging to image images[g],
+    whose latents are row images[g] of the stacked (B, 1, C) adaptive
+    params; each (layer, group) is then a segment of its own in K4.
     dtype: the tower's activations (feature_dtype); the diffs' robust
     terms and the head run in f32."""
 
@@ -96,7 +100,8 @@ class LPIPS:
                  use_robust: bool = False,
                  adaptive: Optional[Sequence[AdaptiveLossParams]] = None,
                  normalize: bool = False, spatial: bool = False,
-                 ret_per_layer: bool = False):
+                 ret_per_layer: bool = False,
+                 images: Optional[Sequence[int]] = None):
         if normalize:
             in0 = 2.0 * in0 - 1.0
             in1 = 2.0 * in1 - 1.0
@@ -112,10 +117,22 @@ class LPIPS:
         if use_robust:
             if adaptive is None:
                 raise ValueError('use_robust requires adaptive params')
-            # one K4 forward launch for all the layers
-            rows = weighted_nll_rows_group(
-                [d.reshape(-1, d.shape[-1]) for d in diffs], adaptive,
-                self.lins)
+            if images is None:
+                # one K4 forward launch for all the layers
+                rows = weighted_nll_rows_group(
+                    [d.reshape(-1, d.shape[-1]) for d in diffs], adaptive,
+                    self.lins)
+            else:
+                # a segment per (layer, image): each has its own latents
+                g = len(images)
+                segs = [d.reshape(g, -1, d.shape[-1]) for d in diffs]
+                flat = weighted_nll_rows_group(
+                    [x[j] for x in segs for j in range(g)],
+                    [p for p in adaptive for _ in range(g)],
+                    [lin for lin in self.lins for _ in range(g)],
+                    images=[j for _ in segs for j in images])
+                rows = [torch.cat(flat[i * g:(i + 1) * g])
+                        for i in range(len(segs))]
         else:
             rows = [torch.sum(torch.square(d) * lin, dim=-1)
                     for d, lin in zip(diffs, self.lins)]

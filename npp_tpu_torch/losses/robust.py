@@ -24,7 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..kernels.robust_rho import rho_otherwise, rho_rows, rho_rows_group
+from ..kernels.robust_rho import (MAX_SEGMENTS, rho_otherwise, rho_rows,
+                                  rho_rows_group)
 
 _LOG_MAX = 33e37
 _EXP_MAX = 87.5
@@ -155,12 +156,23 @@ def adaptive_scale(p: AdaptiveLossParams, scale_lo=1e-5, scale_init=1.0):
 def weighted_nll_rows_group(xs: Sequence[torch.Tensor],
                             ps: Sequence[AdaptiveLossParams],
                             ws: Sequence[torch.Tensor],
-                            scale_lo: float = 1e-5) -> List[torch.Tensor]:
+                            scale_lo: float = 1e-5,
+                            images: Optional[Sequence[int]] = None
+                            ) -> List[torch.Tensor]:
     """weighted_nll_rows of each (x, p, w): the rho terms of all of them go
-    through one K4 forward launch on the card (rho_rows_group)."""
-    alphas = [adaptive_alpha(p)[0] for p in ps]
-    scales = [adaptive_scale(p, scale_lo=scale_lo)[0] for p in ps]
-    rows = rho_rows_group(xs, alphas, scales, ws)
+    through one K4 forward launch on the card (rho_rows_group), or one per
+    MAX_SEGMENTS of them. images: with latents stacked over images
+    ((B, 1, C), parallel/batch.py), segment i takes image images[i]'s."""
+    def pick(t, i):
+        return t[0] if images is None else t[images[i], 0]
+    alphas = [pick(adaptive_alpha(p), i) for i, p in enumerate(ps)]
+    scales = [pick(adaptive_scale(p, scale_lo=scale_lo), i)
+              for i, p in enumerate(ps)]
+    rows: List[torch.Tensor] = []
+    for lo in range(0, len(xs), MAX_SEGMENTS):
+        hi = lo + MAX_SEGMENTS
+        rows += rho_rows_group(xs[lo:hi], alphas[lo:hi], scales[lo:hi],
+                               ws[lo:hi])
     return [r + torch.sum(w * (torch.log(s) + log_base_partition_function(a)))
             for r, a, s, w in zip(rows, alphas, scales, ws)]
 

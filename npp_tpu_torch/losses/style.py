@@ -30,7 +30,10 @@ STYLE_CHNS = (64, 128, 256)
 
 class StyleLoss:
     """__call__(a_img, b_img, weight=None, adaptive=None, valid=None) -> ()
-    on NHWC images; adaptive: the three layers' AdaptiveLossParams."""
+    on NHWC images; adaptive: the three layers' AdaptiveLossParams. With
+    `images` (the multi-image fit, parallel/batch.py) the samples are
+    len(images) equal groups and the result is (len(images),), group g's
+    loss with the latents of image images[g] (stacked (B, 1, C^2))."""
 
     def __init__(self, device: torch.device, use_adaptive: bool = False,
                  dtype: torch.dtype = torch.float32):
@@ -55,19 +58,25 @@ class StyleLoss:
     def __call__(self, a_img: torch.Tensor, b_img: torch.Tensor,
                  weight: Optional[torch.Tensor] = None,
                  adaptive: Optional[Sequence[AdaptiveLossParams]] = None,
-                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 valid: Optional[torch.Tensor] = None,
+                 images: Optional[Sequence[int]] = None) -> torch.Tensor:
         v = None if valid is None else valid.to(torch.float32)
+        g = 1 if images is None else len(images)
 
         def agg(per_sample):
+            """Each group's aggregate, (g,)."""
+            def grp(t):
+                return t.reshape(g, -1)
             if weight is not None:
                 t = per_sample * weight
-                return torch.sum(t if v is None else t * v)
+                return torch.sum(grp(t if v is None else t * v), dim=1)
             if v is not None:
-                return torch.sum(per_sample * v) / torch.clamp(v.sum(), min=1.0)
-            return torch.mean(per_sample)
+                return torch.sum(grp(per_sample * v), dim=1) / \
+                    torch.clamp(grp(v).sum(dim=1), min=1.0)
+            return torch.mean(grp(per_sample), dim=1)
 
         resids, ws = [], []
-        loss = torch.zeros((), device=a_img.device)
+        loss = torch.zeros((g,), device=a_img.device)
         for fa, fb in zip(self.features(a_img), self.features(b_img)):
             n, c, h, w = fa.shape
             av, bv = fa.reshape(n, c, h * w), fb.reshape(n, c, h * w)
@@ -85,6 +94,18 @@ class StyleLoss:
             if adaptive is None:
                 raise ValueError('use_adaptive requires adaptive params')
             # mean over C^2 of nll / denom = sum_c w_c nll, w_c = 1/(C^2 denom)
-            for per in weighted_nll_rows_group(resids, adaptive, ws):
+            if images is None:
+                pers = weighted_nll_rows_group(resids, adaptive, ws)
+            else:
+                # a segment per (layer, image), each with its own latents
+                flat = weighted_nll_rows_group(
+                    [r.reshape(g, -1, r.shape[-1])[j] for r in resids
+                     for j in range(g)],
+                    [p for p in adaptive for _ in range(g)],
+                    [w for w in ws for _ in range(g)],
+                    images=[j for _ in resids for j in images])
+                pers = [torch.cat(flat[i * g:(i + 1) * g])
+                        for i in range(len(resids))]
+            for per in pers:
                 loss = loss + agg(per)
-        return loss
+        return loss if images is not None else loss[0]

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -18,6 +19,9 @@ from ..losses.lpips import LPIPS
 from ..losses.style import StyleLoss
 from ..nn.embedder import TaskEmbedder, make_task_embedder
 from ..nn.mlp import NPPNet, NPPNetTop1
+from ..utils.checkpoint import (latest_checkpoint, restore_fit_state,
+                                save_fit_state)
+from ..utils.debug import MetricLogger
 from ..utils.pools import pad_pool_pow2
 from .loaders import TaskData
 from .sampler import build_sampler_consts
@@ -135,16 +139,20 @@ def fit_image(cfg, data: TaskData,
               eval_hook: Optional[Callable[[int, FitState, Callable], None]] = None,
               log_every: Optional[int] = None, device=None,
               checkpoint_dir: Optional[str] = None,
-              task: TaskSpec = COMPLETION_TASK) -> FitResult:
+              task: TaskSpec = COMPLETION_TASK,
+              metrics_path: Optional[str] = None) -> FitResult:
     """The reference's per-image training loop (NPP_completion/train.py:
     133-264). Runs on the card unless device='cpu' is passed. The history
     records, per log, the metrics and the wall ms per step of the block
     that ended there (synchronised, eval excluded). The steps and the
     render run under cfg.matmul_precision, everything else in full f32.
-    Checkpoints are not ported yet: a checkpoint_dir raises."""
-    if checkpoint_dir:
-        raise NotImplementedError(
-            'checkpoints are not ported to npp_tpu_torch yet (see ROADMAP.md)')
+
+    checkpoint_dir: save the FitState and the batch generator every
+    i_testset iterations (utils/checkpoint.py) and resume from the latest
+    file there, so a resumed fit goes on exactly as one that never
+    stopped. metrics_path: a JSONL stream with npp_tpu's events, a
+    kind='train' event at every log and a kind='fit_done' event at the
+    end (npp_tpu/models/pipeline.py:134,257,287-289)."""
     device = resolve_device(device)
     check_slice(cfg)
     tf32 = allows_tf32(cfg.matmul_precision)
@@ -153,25 +161,73 @@ def fit_image(cfg, data: TaskData,
           f'{"in TF32" if tf32 else "in full f32"}, the rest in full f32',
           flush=True)
     # full f32 outside the steps and the render, which set their own
-    with matmul_precision('float32'):
-        return _fit(cfg, data, eval_hook, log_every, device, task)
+    logger = MetricLogger(metrics_path)
+    try:
+        with matmul_precision('float32'):
+            return _fit(cfg, data, eval_hook, log_every, device, task,
+                        checkpoint_dir, logger)
+    finally:
+        logger.close()
+
+
+def decayed_patch(cfg, patch_size: int, start_iter: int):
+    """(patch_size, patch_num, n_decays) at start_iter: the patch-size
+    schedule fast-forwarded for a resumed fit (npp_tpu/models/pipeline.py:
+    147-154)."""
+    n_decays = 0 if start_iter <= cfg.patch_size_decay else \
+        (start_iter - 1) // cfg.patch_size_decay
+    patch_num = cfg.patch_num
+    for _ in range(n_decays):
+        if patch_size > 31:
+            patch_size //= 2
+            patch_num *= 2
+    return patch_size, patch_num, n_decays
+
+
+def block_plan(cfg, patch_size: int, start_iter: int, n_total: int,
+               log_every: Optional[int]):
+    """Yields (i, patch_size, patch_num, n) for each block of a fit over
+    iterations start_iter .. n_total - 1: blocks of the gcd of the event
+    cadences, so eval and log boundaries fall between blocks (npp_tpu
+    pipeline.py:157-163), single steps below 8 or where a whole block does
+    not fit; the patch size halves (and the count doubles) at the first
+    block start past each patch_size_decay iterations, while it exceeds
+    31 and more than 10 iterations remain."""
+    patch_size, patch_num, n_decays = decayed_patch(cfg, patch_size,
+                                                    start_iter)
+    block = math.gcd(cfg.i_testset, log_every or cfg.i_testset)
+    use_blocks = block >= 8
+    i = start_iter
+    while i < n_total:
+        due = (i - 1) // cfg.patch_size_decay if i > 1 else 0
+        if due > n_decays and patch_size > 31 and n_total - i > 10:
+            while n_decays < due and patch_size > 31:
+                n_decays += 1
+                patch_size //= 2
+                patch_num *= 2
+        n = block if (use_blocks and n_total - i >= block and
+                      (i - 1) % block == 0) else 1
+        yield i, patch_size, patch_num, n
+        i += n
 
 
 def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device,
-         task: TaskSpec) -> FitResult:
+         task: TaskSpec, checkpoint_dir: Optional[str],
+         logger: MetricLogger) -> FitResult:
     comps = build_components(cfg, data, device, task)
     state = init_fit_state(cfg, comps.model, comps.percep, device,
                            comps.style)
     render = make_render(cfg, comps.embedder)
     gen = torch.Generator().manual_seed(cfg.seed + 1)
 
-    patch_size = data.patch_size
-    patch_num = cfg.patch_num
-    n_decays = 0
-    # block size: the gcd of the event cadences, so eval/log boundaries fall
-    # between blocks (pipeline.py:157-163); below 8 steps, single steps
-    block = math.gcd(cfg.i_testset, log_every or cfg.i_testset)
-    use_blocks = block >= 8
+    start_iter = 1
+    if checkpoint_dir:
+        latest = latest_checkpoint(checkpoint_dir)
+        if latest:
+            restore_fit_state(latest, state, gen)
+            start_iter = state.step + 1
+            print(f'[fit] resumed from {latest} at iter {start_iter}',
+                  flush=True)
     stages: Dict = {}
 
     def stage(ps, pn, blk):
@@ -192,34 +248,32 @@ def _fit(cfg, data: TaskData, eval_hook, log_every, device: torch.device,
         if log_every and i % log_every == 0:
             m = {k_: float(v) for k_, v in metrics.items()}
             m['iter'] = i
+            logger.log(kind='train', task=task.name, **m)
             m['ms_per_step'] = ms_per_step
             history.append(m)
             print(f'[{task.name}] iter {i} ' + ' '.join(
                 f'{k_}={v:.4g}' for k_, v in m.items() if k_ != 'iter'),
                 flush=True)
-        if i % cfg.i_testset == 0 and i > 0 and eval_hook is not None:
-            eval_hook(i, state, render)
+        if i % cfg.i_testset == 0 and i > 0:
+            if eval_hook is not None:
+                eval_hook(i, state, render)
+            if checkpoint_dir:
+                save_fit_state(os.path.join(checkpoint_dir, f'step_{i}.pt'),
+                               state, gen)
 
-    i = 1
-    while i < cfg.N_iters:
-        due = (i - 1) // cfg.patch_size_decay if i > 1 else 0
-        if due > n_decays and patch_size > 31 and cfg.N_iters - i > 10:
-            while n_decays < due and patch_size > 31:
-                n_decays += 1
-                patch_size //= 2
-                patch_num *= 2
-        n = block if (use_blocks and cfg.N_iters - i >= block and
-                      (i - 1) % block == 0) else 1
+    for i, patch_size, patch_num, n in block_plan(
+            cfg, data.patch_size, start_iter, cfg.N_iters, log_every):
         tb = time.time()
         metrics = stage(patch_size, patch_num, n)(state, gen)
         _sync(device)
         dt = time.time() - tb
         fit_s += dt
-        i += n
-        post_step(i - 1, metrics, 1e3 * dt / n)
+        post_step(i + n - 1, metrics, 1e3 * dt / n)
     _sync(device)
     wall = time.time() - t0
-    iters = cfg.N_iters - 1
+    iters = cfg.N_iters - start_iter
+    logger.log(kind='fit_done', task=task.name, wall_time_s=wall,
+               iters=iters)
     return FitResult(state=state, render=render, components=comps,
                      history=history, wall_time_s=wall,
                      iters_per_sec=iters / max(fit_s, 1e-9))

@@ -25,8 +25,9 @@ built. What differs from the JAX package, and why:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,7 +35,7 @@ from ..device import matmul_precision
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
-from ..losses.robust import adaptive_init
+from ..losses.robust import adaptive_init, stacked_nll_mean_sum
 from ..losses.style import StyleLoss
 from ..nn.embedder import TaskEmbedder, make_embedding_table
 from ..nn.mlp import render_activation
@@ -121,38 +122,158 @@ def embed_coords(params: FitParams, embedder, coords: torch.Tensor
     return embedder.embed(coords)
 
 
+def draw_batch(cfg, gen: torch.Generator, sampler: SamplerConsts,
+               pool_n: int, patch_num: int, patch_size: int
+               ) -> Tuple[PatchBatch, torch.Tensor]:
+    """One step's draws from `gen`, in the order every fit draws them: the
+    patches, then N_rand indices into the pixel pool (on the host)."""
+    batch = sample_patches(gen, sampler, patch_num, patch_size,
+                           cfg.num_real_patch_per_sample, cfg.invalid_ratio,
+                           cfg.no_reg_sampling)
+    return batch, torch.randint(0, pool_n, (cfg.N_rand,), generator=gen)
+
+
+def image_losses(cfg, params: FitParams, pred_pix: torch.Tensor,
+                 gt_rgb: torch.Tensor, gt_mask: torch.Tensor,
+                 pred_patch: torch.Tensor, batches: Sequence[PatchBatch],
+                 percep: Optional[LPIPS], contextual: Optional[ContextualLoss],
+                 style: Optional[StyleLoss], task: TaskSpec, stacked: bool
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of B images, each on its own batch: pred_pix, gt_rgb and
+    gt_mask (B, N_rand, .), pred_patch (B, P, S, S, 3), one PatchBatch per
+    image. Returns the sum over the images (each image's gradient is its
+    own) and the metrics, means over the images.
+
+    stacked: the params hold a latent row per image ((B, 1, C),
+    parallel/batch.py), so the pixel loss is one K4 segment of 3B columns
+    and LPIPS, CX and the style loss aggregate per image; else B is 1 and
+    the params are one image's (the sequential fit)."""
+    dev = pred_pix.device
+    nb = len(batches)
+    metrics: Dict[str, torch.Tensor] = {}
+    loss = torch.zeros((), device=dev)
+    if not cfg.no_pix_loss:
+        if not stacked:
+            pix = img2mse(pred_pix[0], gt_rgb[0], cfg.loss_type,
+                          params.adaptive_pix, gt_mask[0],
+                          scale_lo=cfg.adaptive_scale_lo)
+        elif cfg.loss_type == 'robust_loss_adaptive':
+            diff = pred_pix - gt_rgb
+            diff = diff * gt_mask + (1.0 - gt_mask) * diff * 0.3
+            pix = stacked_nll_mean_sum(diff, params.adaptive_pix,
+                                       scale_lo=cfg.adaptive_scale_lo)
+        else:
+            pix = sum(img2mse(pred_pix[j], gt_rgb[j], cfg.loss_type, None,
+                              gt_mask[j]) for j in range(nb))
+        loss = loss + pix
+        metrics['pixel'] = pix.detach() / nb
+
+    # ---- NHWC patch tensors, (B*P*K, S, S, C), image-major
+    patch_num, s = pred_patch.shape[1:3]
+    topk = cfg.num_real_patch_per_sample
+    pk = patch_num * topk
+
+    def per_slot(t):   # (B, P, ...) -> (B*P*K, ...), each repeated K times
+        return t[:, :, None].expand((nb, patch_num, topk) + t.shape[2:]
+                                    ).reshape((nb * pk,) + t.shape[2:])
+
+    def field(name):   # the images' PatchBatch fields on a leading axis
+        ts = [getattr(b, name) for b in batches]
+        return ts[0][None] if nb == 1 else torch.stack(ts)
+
+    pred_t = per_slot(pred_patch)
+    real_rgb = field('real_rgb').reshape(nb * pk, s, s, 3)
+    real_mask = field('real_mask').reshape(nb * pk, s, s, 1)
+    fake_rgb = per_slot(field('fake_rgb'))
+    fake_mask = per_slot(field('fake_mask'))
+    valid = field('valid').reshape(nb * pk)
+    weight = field('weight').reshape(nb * pk) if cfg.use_patch_weight \
+        else None
+    sources = [b.source for b in batches]
+
+    # comp-paste for 'val' batches (reference: train.py:228-236)
+    is_val = [src == SOURCE_VAL for src in sources]
+    cx_pred = pred_t
+    if cfg.use_comp and any(is_val):
+        cx_pred = fake_rgb * fake_mask + pred_t * (1.0 - fake_mask)
+        if not all(is_val):
+            rows = torch.tensor(is_val, device=dev).repeat_interleave(pk)
+            cx_pred = torch.where(rows[:, None, None, None], cx_pred, pred_t)
+
+    if cfg.use_contextual_loss and contextual is not None:
+        cx = contextual(cx_pred * real_mask, real_rgb * real_mask,
+                        weight=weight, valid=valid,
+                        groups=nb if stacked else None)
+        loss = loss + torch.sum(cx) * cfg.contextual_weight
+        metrics['contextual'] = cx.detach().mean()
+
+    if cfg.use_perceptual_loss and percep is not None:
+        # only on 'same' batches (reference: train.py:239-251)
+        same = [j for j, src in enumerate(sources) if src == SOURCE_SAME]
+        perc = torch.zeros((), device=dev)
+        if same:
+            if len(same) < nb:
+                rows = torch.cat([torch.arange(j * pk, (j + 1) * pk)
+                                  for j in same]).to(dev)
+                pred_s, real_s, fake_s, valid_s = (
+                    t[rows] for t in (pred_t, real_mask, fake_rgb, valid))
+                weight_s = None if weight is None else weight[rows]
+            else:
+                pred_s, real_s, fake_s, valid_s, weight_s = (
+                    pred_t, real_mask, fake_rgb, valid, weight)
+            robust = cfg.use_adaptive_perceptual_loss
+            per = percep(pred_s * real_s, fake_s * real_s, use_robust=robust,
+                         adaptive=params.adaptive_percep, normalize=True,
+                         images=same if stacked and robust else None
+                         ).reshape(len(same), pk)
+            v = valid_s.reshape(len(same), pk)
+            if weight_s is not None:
+                perc = torch.sum(per * weight_s.reshape(len(same), pk) * v)
+            else:
+                vf = v.to(per.dtype)
+                perc = torch.sum(torch.sum(per * vf, 1) /
+                                 torch.clamp(vf.sum(1), min=1.0))
+            loss = loss + perc * cfg.perceptual_weight
+        metrics['perceptual'] = perc.detach() / nb
+
+    if task.use_style and getattr(cfg, 'use_style_loss', False) \
+            and style is not None:
+        # (reference: NPP_remapping/train.py:255-262), the comp-paste on
+        # 'val' batches as for CX
+        st = style(cx_pred * real_mask, real_rgb * real_mask, weight=weight,
+                   adaptive=params.adaptive_style, valid=valid,
+                   images=list(range(nb)) if stacked else None)
+        loss = loss + torch.sum(st) * cfg.style_weight
+        metrics['style'] = st.detach().mean()
+
+    metrics['source'] = torch.tensor(float(np.mean(sources)))
+    return loss, metrics
+
+
 def build_loss_fn(cfg, percep: Optional[LPIPS],
                   contextual: Optional[ContextualLoss], patch_num: int,
                   patch_size: int,
                   inject: Optional[Tuple[torch.Tensor, PatchBatch]] = None,
                   style: Optional[StyleLoss] = None,
                   task: TaskSpec = COMPLETION_TASK):
-    """Returns loss_fn(params, embedder, consts, gen) -> (loss, metrics).
+    """Returns loss_fn(params, embedder, consts, gen) -> (loss, metrics):
+    image_losses of one image.
 
     inject: a fixed (pixel indices (N_rand,), PatchBatch) used instead of
     drawing from `gen` — the tests hand both packages the same batch."""
-    topk = cfg.num_real_patch_per_sample
     n_rand = cfg.N_rand
-    use_cx = cfg.use_contextual_loss and contextual is not None
-    use_perc = cfg.use_perceptual_loss and percep is not None
-    use_style = task.use_style and getattr(cfg, 'use_style_loss', False) \
-        and style is not None
 
     def loss_fn(params: FitParams, embedder, consts: FitConsts,
                 gen: Optional[torch.Generator]):
-        dev = consts.pixel_img.device
         if inject is not None:
             pix_idx, batch = inject
-            pix_idx = pix_idx.to(dev)
         else:
-            batch = sample_patches(gen, consts.sampler, patch_num, patch_size,
-                                   topk, cfg.invalid_ratio,
-                                   cfg.no_reg_sampling)
-            pix_idx = torch.randint(0, consts.pool_train_n, (n_rand,),
-                                    generator=gen).to(dev)
+            batch, pix_idx = draw_batch(cfg, gen, consts.sampler,
+                                        consts.pool_train_n, patch_num,
+                                        patch_size)
 
         # ---- pixel batch (reference: NPP_completion/train.py:172-178)
-        pix_coords = consts.pool_train[pix_idx]
+        pix_coords = consts.pool_train[pix_idx.to(consts.pixel_img.device)]
         gt_rgb = consts.pixel_img[pix_coords[:, 0], pix_coords[:, 1]]
         gt_mask = consts.pixel_mask[pix_coords[:, 0], pix_coords[:, 1]]
 
@@ -161,74 +282,11 @@ def build_loss_fn(cfg, percep: Optional[LPIPS],
         raw = params.mlp(embed_coords(params, embedder,
                                       all_coords.to(torch.float32)))
         pred = render_activation(raw, cfg.normalize_type)
-        pred_pix = pred[:n_rand]
-        pred_patch = pred[n_rand:].reshape(patch_num, patch_size, patch_size, 3)
-
-        metrics: Dict[str, torch.Tensor] = {}
-        loss = torch.zeros((), device=dev)
-        if not cfg.no_pix_loss:
-            pix_loss = img2mse(pred_pix, gt_rgb, cfg.loss_type,
-                               params.adaptive_pix, gt_mask,
-                               scale_lo=cfg.adaptive_scale_lo)
-            loss = loss + pix_loss
-            metrics['pixel'] = pix_loss.detach()
-
-        # ---- NHWC patch tensors, (P*K, S, S, C)
-        pk = patch_num * topk
-        s = patch_size
-
-        def per_slot(t):   # (P, ...) -> (P*K, ...), each repeated K times
-            return t[:, None].expand((patch_num, topk) + t.shape[1:]
-                                     ).reshape((pk,) + t.shape[1:])
-
-        pred_t = per_slot(pred_patch)
-        real_rgb = batch.real_rgb.reshape(pk, s, s, 3)
-        real_mask = batch.real_mask.reshape(pk, s, s, 1)
-        fake_rgb = per_slot(batch.fake_rgb)
-        fake_mask = per_slot(batch.fake_mask)
-        valid = batch.valid.reshape(pk)
-        weight = batch.weight.reshape(pk) if cfg.use_patch_weight else None
-
-        # comp-paste for 'val' batches (reference: train.py:228-236)
-        if cfg.use_comp and batch.source == SOURCE_VAL:
-            cx_pred = fake_rgb * fake_mask + pred_t * (1.0 - fake_mask)
-        else:
-            cx_pred = pred_t
-
-        if use_cx:
-            cx = contextual(cx_pred * real_mask, real_rgb * real_mask,
-                            weight=weight, valid=valid)
-            loss = loss + cx * cfg.contextual_weight
-            metrics['contextual'] = cx.detach()
-
-        if use_perc:
-            # only on 'same' batches (reference: train.py:239-251)
-            if batch.source == SOURCE_SAME:
-                per = percep(pred_t * real_mask, fake_rgb * real_mask,
-                             use_robust=cfg.use_adaptive_perceptual_loss,
-                             adaptive=params.adaptive_percep,
-                             normalize=True).reshape(pk)
-                if weight is not None:
-                    perc = torch.sum(per * weight * valid)
-                else:
-                    v = valid.to(per.dtype)
-                    perc = torch.sum(per * v) / torch.clamp(v.sum(), min=1.0)
-                loss = loss + perc * cfg.perceptual_weight
-            else:
-                perc = torch.zeros((), device=dev)
-            metrics['perceptual'] = perc.detach()
-
-        if use_style:
-            # (reference: NPP_remapping/train.py:255-262), the comp-paste
-            # on 'val' batches as for CX
-            st = style(cx_pred * real_mask, real_rgb * real_mask,
-                       weight=weight, adaptive=params.adaptive_style,
-                       valid=valid)
-            loss = loss + st * cfg.style_weight
-            metrics['style'] = st.detach()
-
-        metrics['source'] = torch.tensor(float(batch.source))
-        return loss, metrics
+        return image_losses(
+            cfg, params, pred[None, :n_rand], gt_rgb[None], gt_mask[None],
+            pred[None, n_rand:].reshape(1, patch_num, patch_size, patch_size,
+                                        3),
+            [batch], percep, contextual, style, task, stacked=False)
 
     return loss_fn
 
@@ -251,26 +309,34 @@ def fit_step(state: FitState, loss_fn, embedder, consts: FitConsts,
     return metrics
 
 
-def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
-    """The dtype of the per-block canvas table, or None to embed on the fly
-    through K1 (npp_tpu/models/trainer.py:293-312): cfg.embed_table names
-    it; no table for tiny blocks, with the warp field (its coordinates are
-    not integers), or above cfg.embed_table_max_mb, unless
+def table_guard(cfg, n_values: int) -> Optional[torch.dtype]:
+    """The dtype of a table of `n_values` entries under cfg's size guard
+    (npp_tpu/models/trainer.py:293-312, parallel/runner.py:196-218):
+    cfg.embed_table names it; none above cfg.embed_table_max_mb, unless
     cfg.embed_table_degrade lets a bf16 table stand in for an f32 one too
     large."""
     dtype = {'float32': torch.float32,
              'bfloat16': torch.bfloat16}.get(cfg.embed_table)
-    if dtype is None or block < 8 or not isinstance(embedder, TaskEmbedder) \
-            or getattr(cfg, 'warp_field', False):
+    if dtype is None:
         return None
-    h, w = embedder.res
-    mb = int(h) * int(w) * embedder.out_dim * dtype.itemsize / 1e6
+    mb = n_values * dtype.itemsize / 1e6
     max_mb = int(cfg.embed_table_max_mb)
     if mb <= max_mb:
         return dtype
     if dtype == torch.float32 and cfg.embed_table_degrade and mb / 2 <= max_mb:
         return torch.bfloat16
     return None
+
+
+def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
+    """The dtype of the per-block canvas table, or None to embed on the fly
+    through K1: no table for tiny blocks or with the warp field (its
+    coordinates are not integers), else table_guard's."""
+    if block < 8 or not isinstance(embedder, TaskEmbedder) \
+            or getattr(cfg, 'warp_field', False):
+        return None
+    h, w = embedder.res
+    return table_guard(cfg, int(h) * int(w) * embedder.out_dim)
 
 
 def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,

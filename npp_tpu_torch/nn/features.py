@@ -1,16 +1,19 @@
 """VGG and AlexNet conv feature towers in PyTorch, NCHW inside.
 
-Port of `npp_tpu/nn/features.py::VGGFeatures` and `AlexNetFeatures` in
-its torchvision layout (`owt=False`, the LPIPS-alex tower; reference:
-externel_lib/lpips/pretrained_networks.py, contextual_loss/modules/vgg.py).
+Port of `npp_tpu/nn/features.py::VGGFeatures` and `AlexNetFeatures`, the
+latter in both of its layouts: the torchvision one (`owt=False`, the
+LPIPS-alex tower; reference: externel_lib/lpips/pretrained_networks.py)
+and the reference's local checkpoint's (`owt=True`, conv1 padding 5 and
+max-pools padded by 1; reference: models/alexnet.py:18-32), whose conv1
+the colour search reads (reference: contextual_loss/modules/vgg.py for
+the VGG towers).
 Convs are named `conv0`, `conv1`, ... as the flax modules name them, and
 taps keep their names: for VGG relu{block}_{idx} after each ReLU and
 pool{block} after each maxpool, for AlexNet conv1 (before its ReLU) and
 relu1..relu5. A tower stops at the deepest tap the caller asks for (XLA
 dropped the unused layers for the JAX package; eager PyTorch would run
 them). `dtype` is the activations' dtype (flax's `dtype`: the weights are
-cast per call, the input on entry). AlexNet's `owt=True` form and
-SqueezeNet are not ported yet.
+cast per call, the input on entry). SqueezeNet is not ported.
 """
 from __future__ import annotations
 
@@ -91,17 +94,21 @@ class VGGFeatures:
 
 
 class AlexNetFeatures:
-    """The torchvision AlexNet tower (`owt=False`: conv1 padding 2,
-    unpadded 3x3 maxpools) with fixed weights {'conv<i>': (weight OIHW,
-    bias)}. __call__(x NCHW, taps) -> {tap: activation NCHW} in `dtype`."""
+    """The AlexNet tower with fixed weights {'conv<i>': (weight OIHW,
+    bias)}: the torchvision form (`owt=False`: conv1 padding 2, unpadded
+    3x3 maxpools) or the reference checkpoint's (`owt=True`: conv1
+    padding 5, maxpools padded by 1 with -inf, as flax pads them).
+    __call__(x NCHW, taps) -> {tap: activation NCHW} in `dtype`."""
 
     # (stride, padding, maxpool before the conv)
     LAYERS = ((4, 2, False), (1, 2, True), (1, 1, True), (1, 1, False),
               (1, 1, False))
 
-    def __init__(self, params: Params, dtype: torch.dtype = torch.float32):
+    def __init__(self, params: Params, dtype: torch.dtype = torch.float32,
+                 owt: bool = False):
         self.params = _cast(params, dtype)
         self.dtype = dtype
+        self.owt = owt
 
     def __call__(self, x: torch.Tensor, taps: Sequence[str]
                  ) -> Dict[str, torch.Tensor]:
@@ -110,7 +117,9 @@ class AlexNetFeatures:
         outs: Dict[str, torch.Tensor] = {}
         for i, (stride, pad, pool) in enumerate(self.LAYERS):
             if pool:
-                x = F.max_pool2d(x, 3, 2)
+                x = F.max_pool2d(x, 3, 2, padding=1 if self.owt else 0)
+            if i == 0 and self.owt:
+                pad = 5
             w, bias = self.params[f'conv{i}']
             x = F.conv2d(x, w, bias, stride=stride, padding=pad)
             if i == 0:

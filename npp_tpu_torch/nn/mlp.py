@@ -28,9 +28,13 @@ from ..kernels.snake import bias_snake
 from .activations import get_activation
 
 
-def _act_linear(layer: nn.Linear, x: torch.Tensor, activation: str
+def _act_linear(layer: nn.Module, x: torch.Tensor, activation: str
                 ) -> torch.Tensor:
-    """act(layer(x)); snake goes through K2 on the bias-free product."""
+    """act(layer(x)); snake goes through K2 on the bias-free product. A
+    StackedLinear layer (the multi-image fit's stacked models,
+    parallel/batch.py) takes x (B, M, in)."""
+    if isinstance(layer, StackedLinear):
+        return layer(x, activation)
     if activation == 'snake':
         lead = x.shape[:-1]
         h = F.linear(x.reshape(-1, x.shape[-1]), layer.weight)
@@ -131,6 +135,17 @@ class StackedLinear(nn.Module):
         b = (torch.rand((d_out,), generator=gen) * 2 - 1) * bound
         self.kernel = nn.Parameter(k.expand(n_cand, -1, -1).clone())
         self.bias = nn.Parameter(b.expand(n_cand, -1).clone())
+
+    @classmethod
+    def from_linears(cls, layers: Sequence[nn.Linear]) -> 'StackedLinear':
+        """The layers' weights stacked, kernel (n, in, out) = weight^T."""
+        self = cls.__new__(cls)
+        nn.Module.__init__(self)
+        self.kernel = nn.Parameter(torch.stack(
+            [lin.weight.detach().t() for lin in layers]).contiguous())
+        self.bias = nn.Parameter(torch.stack(
+            [lin.bias.detach() for lin in layers]).contiguous())
+        return self
 
     def forward(self, x: torch.Tensor,
                 activation: Optional[str] = None) -> torch.Tensor:

@@ -4,8 +4,10 @@ NPP_proposal/feature_searching.py:14-69), a port of
 `proposal/cv.py`, on the host as in `npp_tpu`.
 
 The default `SearchConfig` (gray_only=True, edge_searching=True) detects on
-grayscale + Canny-edge features with no conv tower. gray_only=False needs
-the AlexNet conv1 tower, which the port does not have yet.
+grayscale + Canny-edge features with no conv tower; gray_only=False adds
+the 64 channels of the `owt` AlexNet's conv1 (pre-ReLU) through the
+registry's 'alexnet', on the host's CPU, as npp_tpu runs it on its
+default device.
 """
 from __future__ import annotations
 
@@ -13,7 +15,10 @@ from typing import Tuple
 
 import numpy as np
 import scipy.ndimage as ndimage
+import torch
 
+from ..nn.features import imagenet_normalize
+from ..nn.registry import get_feature_extractor
 from . import cv
 
 
@@ -50,15 +55,24 @@ def normalize_to_uint8(arr: np.ndarray, channel_idx=(1, 2)) -> np.ndarray:
     return np.uint8(out * 255)
 
 
+@torch.no_grad()
+def alexnet_conv1(img_u8: np.ndarray) -> np.ndarray:
+    """The stride-4 conv1 activation (pre-ReLU) of the owt AlexNet on the
+    32-padded, ImageNet-normalised image (reference:
+    feature_searching.py:25-32, models/model_def.py:99-116):
+    (ceil32(H)/4, ceil32(W)/4, 64)."""
+    apply_fn, tap = get_feature_extractor('alexnet')
+    x = pad_multiple_of(img_u8.astype(np.float32) / 255.0, 32)
+    x = imagenet_normalize(torch.as_tensor(x)[None])
+    return apply_fn(x)[tap][0].numpy()
+
+
 def im2act(img_u8: np.ndarray, mask: np.ndarray, gray_only: bool = True
            ) -> Tuple[np.ndarray, np.ndarray]:
     """The (C, h, w) feature stack at 1/4 resolution
-    (reference: feature_searching.py:14-51): gray + mask, both multiplied
-    by the downsampled unknown mask. Returns (activation, mask)."""
-    if not gray_only:
-        raise NotImplementedError(
-            'gray_only=False needs the AlexNet conv1 tower, which is not '
-            'ported yet (ROADMAP.md A.5: it comes with segmentation)')
+    (reference: feature_searching.py:14-51): [conv1 (64)?] + gray + mask,
+    all multiplied by the downsampled unknown mask. Returns (activation,
+    mask)."""
     img_u8 = img_u8[..., :3]
     h, w = img_u8.shape[:2]
     nh, nw = h // 4, w // 4
@@ -66,7 +80,12 @@ def im2act(img_u8: np.ndarray, mask: np.ndarray, gray_only: bool = True
     gray = cv.rgb2gray(np.ascontiguousarray(img_u8))
     gray = cv.resize_linear_u8(gray, (nw * 2, nh * 2))
     gray = cv.resize_linear_u8(gray, (nw, nh)).astype(np.float64)
-    act = np.stack([gray, m])
+    if gray_only:
+        act = np.stack([gray, m])
+    else:
+        conv = alexnet_conv1(img_u8)[:nh, :nw]          # (nh, nw, 64)
+        act = np.concatenate([np.moveaxis(conv, -1, 0), gray[None], m[None]],
+                             0)
     return act * m[None], m
 
 

@@ -12,9 +12,17 @@ forward and one K4 backward launch (losses/robust.py::stacked_nll_mean_sum).
 
 npp_tpu pads the candidate axis (rank_pad_candidates) and the pixel pool
 and chunk counts to fixed sizes so that its XLA executables are reused
-across images; the values do not depend on the padding, and the port does
-none. Its suite ranking and candidate mesh are not ported yet
-(ROADMAP.md A.7).
+across images; the values do not depend on the padding, and the one-image
+ranking here does none.
+
+`rank_proposals_suite` ranks a suite of images with one lockstep fit over
+(images x candidates): the light model stacked over B * n_cand (K2 batched
+over them, one K4 launch each way over 2,048 x 3 * B * n_cand), each
+image drawing its own batches from a generator seeded as its one-image
+ranking seeds its one, so each image's fit is its sequential one; then
+each image's own eval (npp_tpu ranking.py:326-535). The one-image fit is
+its B = 1 case (fit_candidates, rank_loss, Lattices.render). npp_tpu's
+candidate mesh is not ported (one card).
 """
 from __future__ import annotations
 
@@ -126,24 +134,51 @@ class Lattices:
 
     def render(self, params: RankParams, coords: torch.Tensor) -> torch.Tensor:
         """coords (M, 2) float (y, x) -> RGB (n_cand, M, 3)."""
-        cfg = self.cfg
-        e_pos = fourier_encode(normalize_coords(coords, self.norm_res),
-                               self.bands, True)
-        e_per = periodic_warp(coords, self.angles, self.periods,
-                              cfg.freq_scales, cfg.freq_offsets,
-                              cfg.angle_offsets, self.norm_res,
-                              include_input=False)
-        return render_activation(params.mlp(e_pos, e_per), cfg.normalize_type)
+        return render_lattices(params, [self], coords[None], self.angles[None],
+                               self.periods[None])
+
+
+def render_lattices(params: RankParams, lats: Sequence[Lattices],
+                    coords: torch.Tensor, angles: torch.Tensor,
+                    periods: torch.Tensor) -> torch.Tensor:
+    """coords (B, M, 2), angles and periods (B, n_cand, 2) -> RGB
+    (B * n_cand, M, 3), image-major: every image's positional encoding at
+    its own tight dims, shared by its candidates, and each candidate's
+    periodic warp."""
+    cfg = lats[0].cfg
+    nb, n_cand = angles.shape[:2]
+    e_pos = [fourier_encode(normalize_coords(coords[j], lat.norm_res),
+                            lat.bands, True) for j, lat in enumerate(lats)]
+    e_pos = e_pos[0][None] if nb == 1 else torch.stack(e_pos)
+    e_per = periodic_warp(coords[:, None], angles, periods, cfg.freq_scales,
+                          cfg.freq_offsets, cfg.angle_offsets,
+                          lats[0].norm_res, include_input=False)
+    x_pos = e_pos[:, None].expand((nb, n_cand) + e_pos.shape[1:]).reshape(
+        (nb * n_cand,) + e_pos.shape[1:])
+    x_per = e_per.reshape((nb * n_cand,) + e_per.shape[2:])
+    return render_activation(params.mlp(x_pos, x_per), cfg.normalize_type)
+
+
+def lockstep_loss(params: RankParams, lats: Sequence[Lattices],
+                  coords: torch.Tensor, gt: torch.Tensor,
+                  angles: torch.Tensor, periods: torch.Tensor
+                  ) -> torch.Tensor:
+    """The sum over (images x candidates) of each candidate's pixel loss
+    on its image's batch, coords (B, M, 2) and gt (B, M, 3) (its gradient
+    is every candidate's own; npp_tpu ranking.py:118-125)."""
+    cfg = lats[0].cfg
+    pred = render_lattices(params, lats, coords, angles, periods)
+    gt = gt.repeat_interleave(angles.shape[1], 0)
+    if cfg.loss_type == 'robust_loss_adaptive':
+        return stacked_nll_mean_sum(pred - gt, params.adaptive_pix)
+    return sum(img2mse(p, g, cfg.loss_type) for p, g in zip(pred, gt))
 
 
 def rank_loss(params: RankParams, lat: Lattices, coords: torch.Tensor,
               gt: torch.Tensor) -> torch.Tensor:
-    """The sum over candidates of each one's pixel loss on one batch (its
-    gradient is every candidate's own; npp_tpu ranking.py:118-125)."""
-    pred = lat.render(params, coords)
-    if lat.cfg.loss_type == 'robust_loss_adaptive':
-        return stacked_nll_mean_sum(pred - gt, params.adaptive_pix)
-    return sum(img2mse(p, gt, lat.cfg.loss_type) for p in pred)
+    """lockstep_loss of one image: coords (M, 2), gt (M, 3)."""
+    return lockstep_loss(params, [lat], coords[None], gt[None],
+                         lat.angles[None], lat.periods[None])
 
 
 def draw_indices(gen: torch.Generator, n_pool: int,
@@ -155,30 +190,9 @@ def draw_indices(gen: torch.Generator, n_pool: int,
 def fit_candidates(params: RankParams, lat: Lattices, img: torch.Tensor,
                    pool: torch.Tensor, gen: torch.Generator,
                    n_iters: int) -> torch.Tensor:
-    """The lockstep fit (npp_tpu ranking.py:171-195): each step draws
-    N_rand indices of `pool` from `gen` and takes one Adam step (b1 0.9,
-    b2 0.999) at lrate * 0.1^(step / (lrate_decay * 100)), the forward and
-    backward under cfg.matmul_precision. Returns the per-step loss, the
-    mean over candidates, (n_iters,) on the device."""
-    cfg = lat.cfg
-    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
-                           betas=(0.9, 0.999), eps=1e-8)
-    schedule = make_schedule(cfg)
-    n_cand = lat.angles.shape[0]
-    losses = []
-    with matmul_precision(cfg.matmul_precision):
-        for step in range(n_iters):
-            for group in opt.param_groups:
-                group['lr'] = schedule(step)
-            idx = draw_indices(gen, len(pool), cfg.N_rand)
-            pix = pool[idx.to(pool.device)]
-            opt.zero_grad(set_to_none=True)
-            loss = rank_loss(params, lat, pix.to(torch.float32),
-                             img[pix[:, 0], pix[:, 1]])
-            loss.backward()
-            opt.step()
-            losses.append(loss.detach() / n_cand)
-    return torch.stack(losses)
+    """fit_candidates_suite of one image."""
+    return fit_candidates_suite(params, [lat], img[None], [pool], [gen],
+                                lat.angles[None], lat.periods[None], n_iters)
 
 
 def _per_sample(fn, n: int, group: int):
@@ -324,3 +338,119 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
     if return_components:
         return np.asarray(distances), comps
     return np.asarray(distances)
+
+
+def fit_candidates_suite(params: RankParams, lats: Sequence[Lattices],
+                         imgs: torch.Tensor, pools: Sequence[torch.Tensor],
+                         gens: Sequence[torch.Tensor], angles: torch.Tensor,
+                         periods: torch.Tensor, n_iters: int) -> torch.Tensor:
+    """The lockstep fit over (images x candidates) (npp_tpu ranking.py:
+    171-195): each step image j draws N_rand indices of its pool from
+    gens[j], as its one-image fit draws them, and one Adam step (b1 0.9,
+    b2 0.999) at lrate * 0.1^(step / (lrate_decay * 100)) moves every
+    candidate of every image, the forward and backward under
+    cfg.matmul_precision. Returns the per-step loss, the mean over all the
+    candidates, (n_iters,) on the device."""
+    cfg = lats[0].cfg
+    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
+                           betas=(0.9, 0.999), eps=1e-8)
+    schedule = make_schedule(cfg)
+    nb, n_cand = angles.shape[:2]
+    bi = torch.arange(nb, device=imgs.device)[:, None]
+    losses = []
+    with matmul_precision(cfg.matmul_precision):
+        for step in range(n_iters):
+            for group in opt.param_groups:
+                group['lr'] = schedule(step)
+            pix = torch.stack([pool[draw_indices(g, len(pool), cfg.N_rand)
+                                    .to(pool.device)]
+                               for pool, g in zip(pools, gens)])
+            gt = imgs[bi, pix[..., 0], pix[..., 1]]            # (B, M, 3)
+            opt.zero_grad(set_to_none=True)
+            loss = lockstep_loss(params, lats, pix.to(torch.float32), gt,
+                                 angles, periods)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach() / (nb * n_cand))
+    return torch.stack(losses)
+
+
+def slice_rank_params(cfg, params: RankParams, j: int, n_cand: int,
+                      device: torch.device) -> RankParams:
+    """Image j's candidates (rows j*n_cand .. (j+1)*n_cand) of a suite's
+    stacked RankParams, as a RankParams of n_cand."""
+    out = init_rank_params(cfg, n_cand, device)
+    out.load_state_dict({k: v[j * n_cand:(j + 1) * n_cand]
+                         for k, v in params.state_dict().items()})
+    return out
+
+
+def rank_proposals_suite(cfg, items, percep: LPIPS,
+                         contextual: ContextualLoss, device=None,
+                         stats: Optional[dict] = None):
+    """Rank every image of a suite with one lockstep fit over (images x
+    candidates), then score each image with its own eval_candidates
+    (npp_tpu ranking.py:412::rank_proposals_suite). items: per image
+    'masked_img' (H, W, 3) on one shared canvas, 'i_train', 'i_val',
+    'all_angles', 'all_periods', 'norm_res' (its tight dims). Runs on the
+    card unless device='cpu' is passed. Returns [(distances, comps)] in
+    item order. stats: 'fit_s', 'fit_ms_per_step', 'eval_s' and the
+    fit's per-step losses ('fit_losses')."""
+    device = resolve_device(device)
+    if not items:
+        raise ValueError('rank_proposals_suite needs at least one item')
+    h, w = items[0]['masked_img'].shape[:2]
+    if any(it['masked_img'].shape[:2] != (h, w) for it in items):
+        raise ValueError('suite ranking needs one shared canvas (pad first)')
+    stats = {} if stats is None else stats
+    n_reals = [len(it['all_angles']) for it in items]
+    n_cand = max(max(n_reals), int(getattr(cfg, 'rank_pad_candidates', 0)))
+    nb = len(items)
+    bands = gaussian_freq_bands(torch.Generator().manual_seed(cfg.seed),
+                                cfg.multires)
+
+    def padded(a):   # pad by repeating candidate 0 (discarded)
+        a = np.asarray(a, np.float32)
+        return np.concatenate([a, np.repeat(a[:1], n_cand - len(a), 0)], 0)
+
+    lats = [Lattices(cfg, padded(it['all_angles']), padded(it['all_periods']),
+                     bands, it['norm_res'], device) for it in items]
+    angles = torch.stack([lat.angles for lat in lats])
+    periods = torch.stack([lat.periods for lat in lats])
+    imgs = torch.stack([torch.as_tensor(np.asarray(it['masked_img']),
+                                        dtype=torch.float32, device=device)
+                        for it in items])
+    pools = [torch.as_tensor(np.asarray(it['i_train']), dtype=torch.long,
+                             device=device) for it in items]
+    params = init_rank_params(cfg, nb * n_cand, device)
+
+    def sync():
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+
+    with matmul_precision('float32'):    # the fit sets its own
+        sync()
+        t0 = time.time()
+        losses = fit_candidates_suite(
+            params, lats, imgs, pools,
+            [torch.Generator().manual_seed(cfg.seed + 1) for _ in items],
+            angles, periods, cfg.N_iters).cpu().numpy()
+        fit_s = time.time() - t0
+        stats.update(fit_s=fit_s, fit_losses=losses,
+                     fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
+        print(f'[search-suite] fit: {cfg.N_iters} steps of {nb} x {n_cand} '
+              f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step', flush=True)
+        t0 = time.time()
+        out = []
+        for j, it in enumerate(items):
+            comps = eval_candidates(
+                cfg, slice_rank_params(cfg, params, j, n_cand, device),
+                lats[j], imgs[j], it['i_val'],
+                _eval_inputs(cfg, it['i_val'], it['norm_res']), percep,
+                contextual)
+            comps = {k: v[:n_reals[j]] for k, v in comps.items()}
+            scores = combine_scores(cfg, comps)
+            out.append((np.asarray(scores[getattr(cfg, 'rank_proxy',
+                                                  'reference')]), comps))
+        stats['eval_s'] = time.time() - t0
+    return out

@@ -6,9 +6,9 @@ pipelines read.
 
 Detection runs on the host with the OpenCV-free primitives of
 `proposal/cv.py`, its loss grid on the device through torch.fft; the
-ranking's fit and eval run on the device. Only save=True needs OpenCV
-(utils/io.py, utils/visualizer.py import it inside their functions). The
-suite search (run_search_suite) is not ported yet (ROADMAP.md A.7).
+ranking's fit and eval run on the device. `run_search_suite` searches a
+suite of images with one lockstep ranking fit over (images x candidates)
+(ranking.py::rank_proposals_suite).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from ..losses.lpips import LPIPS
 from ..utils.io import read_example_dir, write_gray, write_odgt, write_rgb
 from ..utils.visualizer import GridProgram, mask2ltrb
 from .pseudo_mask import build_pseudo_split
-from .ranking import combine_scores, rank_proposals
+from .ranking import combine_scores, rank_proposals, rank_proposals_suite
 from .search_engine import search_periodicity_by_feat
 
 
@@ -155,7 +155,7 @@ def run_search(cfg, percep: Optional[LPIPS] = None,
     utils/io.py::read_example_dir returns; utils/synthetic.py::
     synthetic_search_data makes them from a seed). Runs on the card unless
     device='cpu' is passed. Returns the odgt record; with save=True it is
-    also written, with the PNGs, under cfg.outdir (needs OpenCV). stats: a
+    also written, with the PNGs, under cfg.outdir. stats: a
     dict to fill with the phase walls ('detect_s', 'rank_s',
     'artefacts_s') and rank_proposals' split."""
     device = resolve_device(device)
@@ -188,3 +188,51 @@ def run_search(cfg, percep: Optional[LPIPS] = None,
           f'rank={t_rank - t_detect:.1f}s artefacts={t_end - t_rank:.1f}s '
           f'total={t_end - t_start:.1f}s', file=sys.stderr, flush=True)
     return odgt
+
+
+def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
+                     contextual: Optional[ContextualLoss] = None,
+                     device=None, datas=None, save: bool = True,
+                     stats: Optional[dict] = None) -> list:
+    """Search every image of a suite with one lockstep ranking fit
+    (npp_tpu/proposal/search.py:223-278). Detection, the pseudo-split and
+    the record stay per image. The images are padded to the largest
+    canvas among them, which changes no distance: the coordinates are
+    normalised by each image's tight dims. datas: the images' arrays
+    (utils/io.py::read_example_dir's form) instead of their cfg.datadir.
+    Returns the odgt records in cfg order. stats: the phase walls
+    ('detect_s', 'rank_s', 'artefacts_s', 'total_s') and the ranking's."""
+    device = resolve_device(device)
+    stats = {} if stats is None else stats
+    t_start = time.time()
+    datas = datas if datas is not None else \
+        [read_example_dir(cfg.datadir) for cfg in cfgs]
+    preps = [_prepare_search(cfg, d, device) for cfg, d in zip(cfgs, datas)]
+    t_detect = time.time()
+    hmax = max(p['masked_img'].shape[0] for p in preps)
+    wmax = max(p['masked_img'].shape[1] for p in preps)
+    items = []
+    for p in preps:
+        h, w = p['masked_img'].shape[:2]
+        pad3 = ((0, hmax - h), (0, wmax - w), (0, 0))
+        items.append({'masked_img': np.pad(p['masked_img'], pad3),
+                      'i_train': p['i_train'], 'i_val': p['i_val'],
+                      'all_angles': p['all_angles'],
+                      'all_periods': p['all_periods'],
+                      'norm_res': (p['dh'], p['dw'])})
+    if percep is None:
+        percep = LPIPS(device, net='vgg')
+    if contextual is None:
+        contextual = ContextualLoss(device)
+    ranked = rank_proposals_suite(cfgs[0], items, percep, contextual,
+                                  device=device, stats=stats)
+    t_rank = time.time()
+    odgts = [_finish_search(p, d, c, save) for p, (d, c) in zip(preps, ranked)]
+    t_end = time.time()
+    stats.update(detect_s=t_detect - t_start, rank_s=t_rank - t_detect,
+                 artefacts_s=t_end - t_rank, total_s=t_end - t_start)
+    print(f'[search-suite] {len(cfgs)} images: '
+          f'detect={t_detect - t_start:.1f}s rank={t_rank - t_detect:.1f}s '
+          f'artefacts={t_end - t_rank:.1f}s total={t_end - t_start:.1f}s',
+          file=sys.stderr, flush=True)
+    return odgts

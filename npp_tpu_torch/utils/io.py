@@ -1,7 +1,8 @@
 """Image and odgt IO (reference: loaders/loaders.py:9-80,
-NPP_proposal/search.py:221-280). A copy of `npp_tpu/utils/io.py` with
-`import cv2` moved inside the image functions: the port must import where
-OpenCV is not installed, and only reading or writing PNGs needs it.
+NPP_proposal/search.py:221-280). A copy of `npp_tpu/utils/io.py` whose
+PNGs go through the port's own codec (utils/png.py) instead of OpenCV,
+which the card's machine lacks: the arrays equal cv2.imread's, and cv2
+reads the written files back to the same pixels.
 
 The odgt JSON record is wire-compatible with the reference so detections made
 by either implementation are interchangeable.
@@ -14,36 +15,32 @@ from typing import Any, Dict
 
 import numpy as np
 
+from .png import read_png, write_png
+
 
 def read_rgb(path: str) -> np.ndarray:
     """(H, W, 3) float RGB in [0, 1]."""
-    import cv2
-    img = cv2.imread(path)
-    if img is None:
+    if not os.path.exists(path):
         raise FileNotFoundError(path)
-    return img[..., ::-1].astype(np.float64) / 255.0
+    return read_png(path, 'rgb').astype(np.float64) / 255.0
 
 
 def read_gray(path: str) -> np.ndarray:
     """(H, W, 1) float in [0, 1]."""
-    import cv2
-    img = cv2.imread(path, 0)
-    if img is None:
+    if not os.path.exists(path):
         raise FileNotFoundError(path)
-    return (img.astype(np.float64) / 255.0)[..., None]
+    return (read_png(path, 'gray').astype(np.float64) / 255.0)[..., None]
 
 
 def write_rgb(path: str, img01: np.ndarray) -> None:
-    import cv2
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    arr = np.uint8(np.clip(np.asarray(img01), 0, 1) * 255)
-    cv2.imwrite(path, arr[..., ::-1])
+    write_png(path, np.uint8(np.clip(np.asarray(img01), 0, 1) * 255))
 
 
 def write_gray(path: str, img01: np.ndarray) -> None:
-    import cv2
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    cv2.imwrite(path, np.uint8(np.clip(np.asarray(img01).squeeze(), 0, 1) * 255))
+    write_png(path,
+              np.uint8(np.clip(np.asarray(img01).squeeze(), 0, 1) * 255))
 
 
 def read_example_dir(datadir: str) -> Dict[str, np.ndarray]:

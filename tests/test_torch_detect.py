@@ -94,10 +94,87 @@ def test_flagship_feature_stack_equals_npp_tpu():
                                   JF.act2edge(act_j[:-1], m_j))
 
 
-def test_gray_only_false_raises():
-    img = np.zeros((64, 64, 3), np.uint8)
-    with pytest.raises(NotImplementedError, match='A.5'):
-        TF.im2act(img, np.ones((64, 64)), gray_only=False)
+def test_alexnet_owt_conv1_matches_jax():
+    """The owt AlexNet (conv1 padding 5, padded max-pools) on the same
+    analytic weights as npp_tpu's, every tap: within 1e-4 relative to each
+    tap's largest value (f32 convolutions in two libraries)."""
+    import jax.numpy as jnp
+    from npp_tpu.nn.features import AlexNetFeatures as JaxAlex
+    from npp_tpu.nn.pretrained import load_tower_params as jax_params
+    from npp_tpu_torch.nn.registry import get_feature_extractor
+    x = np.random.RandomState(0).randn(2, 70, 90, 3).astype(np.float32)
+    mod = JaxAlex(owt=True)
+    want = mod.apply({'params': jax_params('alexnet_owt', mod,
+                                           jnp.zeros((1, 64, 64, 3)))},
+                     jnp.asarray(x))
+    apply_fn, tap = get_feature_extractor('alexnet')
+    assert tap == 'conv1'
+    taps = ('conv1', 'relu1', 'relu2', 'relu3', 'relu4', 'relu5')
+    got = apply_fn(torch.tensor(x), taps)
+    for t in taps:
+        w = np.asarray(want[t])
+        assert got[t].shape == w.shape, t
+        np.testing.assert_allclose(got[t].numpy(), w,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=t)
+
+
+def test_registry_names():
+    from npp_tpu.nn.registry import get_available_models as jax_names
+    from npp_tpu_torch.nn.registry import (get_available_models,
+                                           get_feature_extractor)
+    assert get_available_models() == jax_names() == [
+        'alexnet', 'alexnet_tv', 'vgg16', 'vgg19']
+    x = torch.zeros(1, 64, 64, 3)
+    for name, tap, ch in (('alexnet_tv', 'relu1', 64),
+                          ('vgg16', 'relu3_3', 256),
+                          ('vgg19', 'relu3_4', 256)):
+        fn, t = get_feature_extractor(name)
+        assert t == tap
+        assert fn(x)[tap].shape[-1] == ch
+    with pytest.raises(NotImplementedError):
+        get_feature_extractor('resnet')
+
+
+def _colour_image(seed, h, w):
+    d = synthetic_search_data(seed, h, w)
+    return (np.uint8(d['masked_img'] * 255),
+            np.uint8(d['valid_mask'] * d['unknown_mask'])[..., 0])
+
+
+@pytest.mark.parametrize('seed,size', [(1, (96, 128)), (2, (70, 90))])
+def test_colour_feature_stack_matches_npp_tpu(seed, size):
+    """im2act(gray_only=False): the 64 conv1 channels within 1e-4 of the
+    largest (f32 convolutions), gray and mask equal; through act2edge's
+    uint8 normalisation the edges then agree on all but 0.1% of pixels."""
+    img, mask = _colour_image(seed, *size)
+    act_t, m_t = TF.im2act(img, mask, gray_only=False)
+    act_j, m_j = JF.im2act(img, mask, gray_only=False)
+    assert act_t.shape == act_j.shape == (66,) + m_t.shape
+    np.testing.assert_array_equal(m_t, m_j)
+    np.testing.assert_array_equal(act_t[64:], act_j[64:])
+    np.testing.assert_allclose(act_t[:64], act_j[:64],
+                               atol=1e-4 * np.abs(act_j[:64]).max())
+    e_t, e_j = TF.act2edge(act_t[:-1], m_t), JF.act2edge(act_j[:-1], m_j)
+    assert np.mean(e_t != e_j) <= 1e-3
+
+
+@pytest.mark.parametrize('seed', [1, 2])
+def test_colour_detection_matches_npp_tpu(seed):
+    """A colour search's candidates (the odgt's rank_candidates) equal
+    npp_tpu's up to proven ties of the loss grid."""
+    img, mask = _colour_image(seed, 96, 128)
+    got = TSE.search_periodicity_by_feat(img, mask, repeat_range=(1, 10, 1),
+                                         gray_only=False)
+    want = JSE.search_periodicity_by_feat(img, mask, repeat_range=(1, 10, 1),
+                                          gray_only=False)
+    act, m = TF.im2act(img, mask, gray_only=False)
+    act = act * TF.act2edge(act[:-1], m)[[0]]
+    h, w = m.shape
+    grid_t = TSE.displacement_loss_grid(torch.tensor(act[:-1]).float(),
+                                        torch.tensor(m).float()).numpy()
+    grid_j = np.asarray(JSE.displacement_loss_grid(
+        act[:-1].astype(np.float32), m.astype(np.float32)))
+    assert_same_up_to_ties(got, want, grid_t, grid_j, h, w)
 
 
 @pytest.mark.parametrize('edge', [True, False])

@@ -210,13 +210,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_options_raise():
-    """comp_seam='residual', checkpoints and LPIPS-squeeze still raise with
-    a pointer to ROADMAP.md; the warp field, the held-out blocks, the
+    """comp_seam='residual' and LPIPS-squeeze still raise with a pointer
+    to ROADMAP.md; the warp field, the held-out blocks, the
     'best' snapshot, the style loss, the segmentation options and
     feature_dtype='bfloat16' are ported and pass check_slice, and
     LPIPS-alex builds."""
     from npp_tpu_torch.losses.lpips import LPIPS
-    from npp_tpu_torch.models.pipeline import check_slice, fit_image
+    from npp_tpu_torch.models.pipeline import check_slice
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         check_slice(TC.replace(TC.CompletionConfig(), comp_seam='residual'))
     for kw in ({'warp_field': True}, {'comp_heldout': 2},
@@ -232,6 +232,3 @@ def test_unported_options_raise():
                                                            256)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         LPIPS(torch.device('cpu'), net='squeeze')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        fit_image(TC.CompletionConfig(), None, device='cpu',
-                  checkpoint_dir='ckpt')
