@@ -7,8 +7,10 @@ Phases, in order; any failure exits non-zero:
  1. device: the card's name and power limit;
  2. build: K1 (csrc/periodic_embed.cu, forward and backward) and K4's
     forward and backward (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu),
-    one nvcc each, printing `-Xptxas -v`, and the segmentation's graph cut
-    (csrc/graphcut.cpp, a host library) with g++, all started together;
+    one nvcc each, printing `-Xptxas -v`, and the host libraries with g++
+    (the segmentation's graph cut, csrc/graphcut.cpp, and the seam
+    composite's Navier-Stokes inpainting, csrc/inpaint_ns.cpp), all
+    started together;
  3. kernels, with TF32 off: each kernel's wrapper against its plain
     PyTorch version on the card at the main paths' shapes (K1 in f32 and
     bf16, and its backward in the coordinates at 59,392 rows, and in f32 at
@@ -27,7 +29,12 @@ Phases, in order; any failure exits non-zero:
     same step on the CPU (plain versions); the blur map of the remapping
     example with its eigenvalues on the card against the CPU; SLIC of the
     segmentation example on the card twice (the same labels) and against
-    the CPU (>= 99.9% of the labels);
+    the CPU (>= 99.9% of the labels); the inpainting library against cv2's
+    outputs (tests/fixtures/torch_inpaint_ns_cv2.npz, every pixel); K4 at
+    LPIPS-squeeze's seven layers (the forward as one grouped launch, the
+    backward at each shape) and LPIPS-squeeze robust, value and gradients,
+    card against CPU. Device times are cold (a 128 MB write evicts the L2
+    before each replayed call), with the warm reading beside them;
  4. TF32: the gradients of the CX, LPIPS-robust and adaptive style terms,
     of one default completion step and of one remapping step under the
     default matmul_precision ('bfloat16': TF32 on) against 'float32', at
@@ -51,6 +58,10 @@ Phases, in order; any failure exits non-zero:
     comp_snapshot='best', 11 iterations with milestones at 5 and 10;
  9. warp path: the completion with warp_field=True, 11 iterations: K1 on
     the fly on warped coordinates (no table) and its backward every step;
+    then the seam path: comp_seam='residual', 11 iterations, the composite
+    the seam-corrected one (the inpainting's host time per call). Every
+    completion path's final outputs must hold pred_rgb_img_comp_seam,
+    val_psnr_seam and val_lpips_seam (made at comp_seam='none' too);
 10. search path: `run_search` at the default SearchConfig on the same
     image without its lattices (detection with its FFT grid on the card,
     the 300-step lockstep fit of 9 candidates through K2 batched and one
@@ -84,9 +95,15 @@ Phases, in order; any failure exits non-zero:
     its distances (within the two runs' spread, or 1e-3 relative);
 15. entry points from files: the flagship example written as PNGs by
     the port's writer, `cli search` (with its grid pictures), `cli
-    complete --N_iters 11` on its output, and scripts/torch_run_suite.py
-    --batched --batched-search on three examples, in subprocesses;
-16. one JSON line of kernels (with the search's, the remapping's, the
+    complete --N_iters 11` on its output, scripts/torch_run_suite.py
+    --batched --batched-search on three examples, and --preset quality
+    --iters-scale 0.0055 on one, in subprocesses;
+16. squeeze path: 10 Adam steps under LPIPS-squeeze robust at the
+    completion's robust batch (six 160x160 patches), counted the same way;
+    then the weight sources: a .pth found through NPP_TPU_TORCH_WEIGHTS
+    and the same weights as an npz through NPP_TPU_WEIGHTS_DIR, the same
+    LPIPS-alex value;
+17. one JSON line of kernels (with the search's, the remapping's, the
     warp's, the segmentation's and the batched paths' shapes and
     launches), the paths' walls and metrics, the nvidia-smi line, and the
     final {"ok": true, "device": {...}} line.
@@ -120,29 +137,62 @@ def bound_ms(n_bytes, n_ops):
                                        else 'operations')
 
 
-def time_ms(fn, iters=20, warmup=3):
+L2_FLUSH_FLOATS = 32 << 20   # 128 MB, more than twice the H100's 50 MB L2
+
+
+def _replay_ms(body, iters, reps=5):
+    """Median ms of `reps` replays of one CUDA graph of `iters` calls of
+    `body`, each between two CUDA events."""
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            body()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    return sorted(times)[reps // 2]
+
+
+def time_ms(fn, iters=20, warmup=3, cold=True):
     """Device ms per call: after `warmup` eager calls, `iters` calls are
-    captured in one CUDA graph and replayed between two CUDA events, so
-    the host's share of a launch (Python, ctypes, Triton's launcher) is
-    left out. eager_ms keeps it."""
+    captured in one CUDA graph and replayed between two CUDA events (the
+    median of five replays), so the host's share of a launch (Python,
+    ctypes, Triton's launcher) is left out; eager_ms keeps it. cold (the
+    default): each call follows a 128 MB write that evicts the L2, so a
+    kernel whose working set fits in the 50 MB L2 cannot read it from
+    there on the next replayed call (which read above the HBM bound), and
+    the same writes' own time, replayed alone, is subtracted. cold=False:
+    back-to-back calls, the warm reading."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / iters
+    if not cold:
+        return _replay_ms(fn, iters) / iters
+    buf = torch.empty(L2_FLUSH_FLOATS, device='cuda')
+
+    def flushed():
+        buf.zero_()
+        fn()
+
+    ms = (_replay_ms(flushed, iters) - _replay_ms(buf.zero_, iters)) / iters
+    del buf
+    return ms
+
+
+def device_times(fn, **kw):
+    """{'ms': the cold device time, 'warm_ms': the warm one} of time_ms."""
+    return dict(ms=time_ms(fn, **kw), warm_ms=time_ms(fn, cold=False, **kw))
 
 
 def eager_ms(fn, iters=20, warmup=3):
@@ -207,12 +257,12 @@ def phase_device():
 
 
 CUDA_SOURCES = ('periodic_embed', 'robust_rho_fwd', 'robust_rho_bwd')
-HOST_SOURCES = ('graphcut',)
+HOST_SOURCES = ('graphcut', 'inpaint_ns')
 
 
 def phase_build():
-    """One nvcc per CUDA source and g++ for the graph cut's host library,
-    all started together."""
+    """One nvcc per CUDA source and g++ for each host library (the graph
+    cut, the inpainting), all started together."""
     from npp_tpu_torch.kernels.build import build_host_library, build_library
     t0 = time.time()
     jobs = [lambda n=n: build_library(n, ptxas_verbose=True)
@@ -289,7 +339,7 @@ def check_k1(gen):
                      'XLA-fused, and embedder.py:235 .astype(dtype) for the '
                      'table; no pl.pallas_call in the repo)',
             shape=[H * W, 1386], dtype=str(dtype).split('.')[-1], **err,
-            ms=time_ms(lambda: periodic_embed(*args, out_dtype=dtype)),
+            **device_times(lambda: periodic_embed(*args, out_dtype=dtype)),
             eager_ms=eager_ms(lambda: periodic_embed(*args,
                                                      out_dtype=dtype)),
             plain_ms=time_ms(lambda: periodic_embed_plain(
@@ -351,7 +401,7 @@ def k2_entries(gen, shape, names, also_judge=()):
             source='npp_tpu_torch/kernels/snake.py',
             replaces='npp_tpu/nn/mlp.py:69 (act(TorchLinear), XLA-fused '
                      'epilogue; no pl.pallas_call in the repo)',
-            shape=list(shape), **errs[key], ms=time_ms(kernel),
+            shape=list(shape), **errs[key], **device_times(kernel),
             eager_ms=eager_ms(kernel), plain_ms=time_ms(plain),
             bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
             library_ms=None))
@@ -428,7 +478,7 @@ def k4_entry(name, source, shape, err, kernel, plain, n_bytes, ops, **extra):
     return dict(name=name, route='cuda', source=source,
                 replaces=K4_REPLACES.format(', its gradient' if 'bwd' in name
                                             else ''),
-                shape=shape, **err, ms=time_ms(kernel),
+                shape=shape, **err, **device_times(kernel),
                 eager_ms=eager_ms(kernel), plain_ms=time_ms(plain),
                 bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by,
                 library_ms=None, **extra)
@@ -471,7 +521,7 @@ def check_k4(gen):
     for (m, c), seg in zip(K4_LPIPS, segs):
         b_ms, _ = bound_ms(*fwd_bytes_ops(m, c))
         singles.append(dict(
-            shape=[m, c], ms=time_ms(lambda: rr.rho_fwd_launch(*seg)),
+            shape=[m, c], **device_times(lambda: rr.rho_fwd_launch(*seg)),
             eager_ms=eager_ms(lambda: rr.rho_fwd_launch(*seg)),
             bound_ms=b_ms))
     n_bytes, ops = (sum(v) for v in zip(*[fwd_bytes_ops(m, c)
@@ -579,7 +629,7 @@ def check_k1_bwd(gen):
                  'differentiated in the coordinates by JAX (XLA-fused; the '
                  'warp field, nn/warp.py; no pl.pallas_call in the repo)',
         shape=[n, 1386], **err,
-        ms=time_ms(lambda: pe.periodic_embed_bwd_launch(g, coords, args)),
+        **device_times(lambda: pe.periodic_embed_bwd_launch(g, coords, args)),
         eager_ms=eager_ms(lambda: pe.periodic_embed_bwd_launch(g, coords,
                                                                args)),
         plain_ms=time_ms(plain, iters=5), bound_ms=b_ms, bound_us=1e3 * b_ms,
@@ -613,7 +663,7 @@ def check_k4_wide(gen):
     for (m, c), seg in zip(K4_STYLE, segs):
         b_ms, _ = bound_ms(*fwd_bytes_ops(m, c))
         singles.append(dict(
-            shape=[m, c], ms=time_ms(lambda: rr.rho_fwd_launch(*seg)),
+            shape=[m, c], **device_times(lambda: rr.rho_fwd_launch(*seg)),
             eager_ms=eager_ms(lambda: rr.rho_fwd_launch(*seg)),
             bound_ms=b_ms))
     n_bytes, ops = (sum(v) for v in zip(*[fwd_bytes_ops(m, c)
@@ -1064,13 +1114,21 @@ def drive(label, must_launch, data=None, every=10, **overrides):
         f"{final['val_psnr']:.3f} val_lpips {final['val_lpips']:.5f}")
     log(f'{label}: {wall:.1f} s wall; peak memory allocated '
         f'{peak / 2**30:.2f} GiB; launches {launches}')
+    log(f"{label}: seam composite: val_psnr_seam "
+        f"{final.get('val_psnr_seam', float('nan')):.3f} val_lpips_seam "
+        f"{final.get('val_lpips_seam', float('nan')):.5f}")
+    if 'pred_rgb_img_comp_seam' not in final or \
+            final['pred_rgb_img_comp_seam'].shape != (H, W, 3):
+        fail(f'{label}: the final outputs lack the seam composite')
     numbers = [h['loss'] for h in result.history] + \
-        [final[k] for k in ('train_psnr', 'val_psnr', 'val_lpips')] + \
+        [final[k] for k in ('train_psnr', 'val_psnr', 'val_lpips',
+                            'val_psnr_seam', 'val_lpips_seam')] + \
         [e[k] for e in evals.values() for k in ('train_psnr', 'val_psnr')]
     if not np.all(np.isfinite(numbers)):
         fail(f'{label}: non-finite losses or metrics: {numbers}')
     comp = final['pred_rgb_img_comp']
-    if comp.shape != (H, W, 3) or not np.all(np.isfinite(comp)):
+    if comp.shape != (H, W, 3) or not np.all(np.isfinite(comp)) or \
+            not np.all(np.isfinite(final['pred_rgb_img_comp_seam'])):
         fail(f'{label}: composite of shape {comp.shape} or not finite')
     blocks = (cfg.N_iters - 1) // every
     if sorted(evals) != [every * (i + 1) for i in range(blocks)] or \
@@ -1365,7 +1423,7 @@ def check_k1_seg(gen):
         replaces='npp_tpu/nn/embedder.py:149 (TaskEmbedder.embed, XLA-fused; '
                  'no pl.pallas_call in the repo)',
         shape=[SEG_K1_ROWS, 1386], dtype='float32', **err,
-        ms=time_ms(lambda: periodic_embed(*args)),
+        **device_times(lambda: periodic_embed(*args)),
         eager_ms=eager_ms(lambda: periodic_embed(*args)),
         plain_ms=time_ms(lambda: periodic_embed_plain(*args), iters=5),
         bound_ms=b_ms, bound_us=1e3 * b_ms, bound_by=b_by, library_ms=None)]
@@ -1629,7 +1687,7 @@ def check_k1_batched(gen):
                 '' if dtype == torch.float32 else
                 ', and the tables\' .astype(dtype), embedder.py:235'),
             shape=[b, n, 1386], dtype=str(dtype).split('.')[-1], **err,
-            ms=time_ms(lambda: pe.periodic_embed_batched(
+            **device_times(lambda: pe.periodic_embed_batched(
                 *args, out_dtype=dtype)),
             eager_ms=eager_ms(lambda: pe.periodic_embed_batched(
                 *args, out_dtype=dtype)),
@@ -1667,7 +1725,7 @@ def check_k1_batched(gen):
         replaces=K1_REPLACES.format(', its gradient in the coordinates '
                                     'under the warp field'),
         shape=[b, n, 1386], dtype='float32', **err,
-        ms=time_ms(lambda: pe.periodic_embed_bwd_batched_launch(g, coords, a)),
+        **device_times(lambda: pe.periodic_embed_bwd_batched_launch(g, coords, a)),
         eager_ms=eager_ms(lambda: pe.periodic_embed_bwd_batched_launch(
             g, coords, a)),
         plain_ms=time_ms(plain_bwd, iters=3),
@@ -2119,9 +2177,304 @@ def drive_entry_points():
                               'completion_top3', name, 'testset_final',
                               'pred_rgb_img_comp.png'))
     log(f'entry points: suite records {recs}; phases {summary["phases"]}')
+    quality = os.path.join(base, 'quality_out')
+    _, walls['suite_quality_s'] = _run('torch_run_suite.py --preset quality', [
+        sys.executable, os.path.join(ROOT, 'scripts', 'torch_run_suite.py'),
+        '--input-root', suite_in, '--out', quality, '--tasks', 'completion',
+        '--only', 'ex0', '--preset', 'quality', '--iters-scale', '0.0055'])
+    with open(os.path.join(quality, 'summary.json')) as f:
+        qsum = json.load(f)
+    qrec = qsum['tasks']['completion'].get('ex0', {})
+    qdir = os.path.join(quality, 'completion', 'results', 'completion_top3',
+                        'ex0', 'testset_final')
+    if qsum['options']['comp_seam'] != 'residual' or not all(
+            np.isfinite(qrec.get(k, np.nan)) for k in
+            ('val_psnr', 'val_psnr_seam', 'val_lpips', 'val_lpips_seam',
+             'heldout_psnr')):
+        fail(f'torch_run_suite.py --preset quality: {qsum["options"]}, '
+             f'{qrec}')
+    for png in ('pred_rgb_img_comp.png', 'pred_rgb_img_comp_seam.png'):
+        read_rgb(os.path.join(qdir, png))
+    log(f'entry points: quality preset record {qrec}')
     return dict(walls, suite=recs, suite_phases=summary['phases'],
                 suite_fit=summary.get('fit_batched'),
-                suite_search=summary.get('search_batched'))
+                suite_search=summary.get('search_batched'),
+                quality=qrec, quality_options=qsum['options'])
+
+
+# ---- the seam slice: the inpainting library, LPIPS-squeeze's K4 shapes,
+# the weight sources, the seam-aware composite and the quality preset
+
+INPAINT_GOLDEN = os.path.join(ROOT, 'tests', 'fixtures',
+                              'torch_inpaint_ns_cv2.npz')
+# LPIPS-squeeze's seven layers at the completion's robust batch (six
+# 160x160 patches): relu1 79x79 x 64 after the stride-2 conv, then the
+# ceil-mode pools' 39x39 x 128, 19x19 x 256 and 9x9 x 384, 384, 512, 512
+SQ_K4 = [(6 * s * s, c) for s, c in ((79, 64), (39, 128), (19, 256),
+                                     (9, 384), (9, 384), (9, 512), (9, 512))]
+SQ_STEPS = 10
+
+
+def check_inpaint():
+    """The Navier-Stokes inpainting library (csrc/inpaint_ns.cpp, built on
+    this machine) against cv2's own outputs, made where cv2 is installed
+    (scripts/make_torch_inpaint_golden.py): every pixel equal."""
+    import numpy as np
+    from npp_tpu_torch.ops.inpaint import inpaint_ns
+    out = {}
+    with np.load(INPAINT_GOLDEN) as g:
+        for case in sorted({k.split('_')[0] for k in g.files}):
+            t0 = time.perf_counter()
+            got = inpaint_ns(g[f'{case}_src'], g[f'{case}_mask'],
+                             float(g[f'{case}_radius']))
+            ms = 1e3 * (time.perf_counter() - t0)
+            bad = int(np.count_nonzero(got != g[f'{case}_out']))
+            log(f'inpaint {case} {g[f"{case}_src"].shape}: {bad} values '
+                f'differ from cv2\'s; {ms:.2f} ms on the host')
+            if bad:
+                fail(f'inpaint: {case} differs from the cv2 golden in {bad} '
+                     'values')
+            out[case] = dict(shape=list(g[f'{case}_src'].shape), ms=ms)
+    return out
+
+
+def squeeze_names():
+    """The kernel entries of the squeeze path (named like its launch
+    counts)."""
+    shapes = ','.join(f'{m}x{c}' for m, c in SQ_K4)
+    return [f'robust_rho_fwd_group[{shapes}]'] + \
+        [f'robust_rho_bwd[{m}x{c}]' for m, c in dict.fromkeys(SQ_K4)]
+
+
+def check_k4_squeeze(gen):
+    """K4 at LPIPS-squeeze's seven layers: the forward as one grouped
+    launch (judge_k4_fwd at every alpha; each layer also timed alone),
+    the backward at each distinct shape."""
+    from npp_tpu_torch.kernels import robust_rho as rr
+    err = judge_k4_fwd(gen, SQ_K4)
+    segs = [k4_inputs(gen, m, c, 'spread') for m, c in SQ_K4]
+    singles = []
+    for (m, c), seg in zip(SQ_K4, segs):
+        b_ms, _ = bound_ms(*fwd_bytes_ops(m, c))
+        singles.append(dict(
+            shape=[m, c], **device_times(lambda: rr.rho_fwd_launch(*seg)),
+            eager_ms=eager_ms(lambda: rr.rho_fwd_launch(*seg)),
+            bound_ms=b_ms))
+    n_bytes, ops = (sum(v) for v in zip(*[fwd_bytes_ops(m, c)
+                                          for m, c in SQ_K4]))
+    out = [k4_entry(squeeze_names()[0], FWD_SRC, [list(sh) for sh in SQ_K4],
+                    err, lambda: rr.rho_fwd_group_launch(segs),
+                    lambda: rr.rho_rows_group_plain(*zip(*segs)), n_bytes,
+                    ops, segments=singles)]
+    for m, c in dict.fromkeys(SQ_K4):
+        out.append(k4_bwd_entry(gen, m, c, ('spread',)))
+    return out
+
+
+def squeeze_batch(seed):
+    """Six 160x160 patches and a perturbed copy (NHWC in [0, 1]), and
+    latents moved off their zero init, from a seed."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    a = torch.rand(6, 160, 160, 3, generator=g)
+    b = torch.clamp(a + 0.2 * torch.randn(a.shape, generator=g), 0, 1)
+    lat = [(torch.randn(1, c, generator=g), torch.randn(1, c, generator=g) - 1)
+           for c in (64, 128, 256, 384, 384, 512, 512)]
+    return a, b, lat
+
+
+def check_lpips_squeeze():
+    """LPIPS-squeeze robust on the card (K4 both ways) against the CPU
+    (plain versions), full f32 on both, with check_step's bars: the value
+    within 1e-4 relative, every gradient (input, latent_alpha,
+    latent_scale) within 1e-2 of the CPU's largest magnitude. Both are
+    also measured against a float64 evaluation on the CPU."""
+    import copy
+    import torch
+    from npp_tpu_torch.losses.lpips import LPIPS
+    a, b, lat = squeeze_batch(0)
+    res = {}
+    for dev, dt in (('cuda', torch.float32), ('cpu', torch.float32),
+                    ('cpu', torch.float64)):
+        lp = LPIPS(torch.device(dev), net='squeeze')
+        if dt == torch.float64:    # a float64 copy; the cached tower stays
+            lp = copy.copy(lp)
+            lp.tower = copy.copy(lp.tower)
+            lp.tower.params = {k: (w.double(), bb.double())
+                               for k, (w, bb) in lp.tower.params.items()}
+            lp.tower.dtype = dt
+            lp.lins = [t.double() for t in lp.lins]
+            lp.shift, lp.scale = lp.shift.double(), lp.scale.double()
+        lats = lp.init_adaptive().to(dev)
+        with torch.no_grad():
+            for p, (la, ls) in zip(lats, lat):
+                p.latent_alpha.copy_(la)
+                p.latent_scale.copy_(ls)
+        lats = lats.to(dt)
+        x = a.to(dev, dt, copy=True).requires_grad_()
+        v = torch.mean(lp(x, b.to(dev, dt), use_robust=True, adaptive=lats,
+                          normalize=True))
+        v.backward()
+        res[dev, dt] = (v.detach().double().cpu(), x.grad.double().cpu(),
+                        [p.latent_alpha.grad.double().cpu() for p in lats],
+                        [p.latent_scale.grad.double().cpu() for p in lats])
+
+    def errs(got, ref):
+        def rel(g, r):
+            return float((g - r).abs().max() / r.abs().max())
+        return dict(value=rel(got[0], ref[0]), input=rel(got[1], ref[1]),
+                    latent_alpha=max(map(rel, got[2], ref[2])),
+                    latent_scale=max(map(rel, got[3], ref[3])))
+
+    card, cpu, f64 = (res[k] for k in (('cuda', torch.float32),
+                                       ('cpu', torch.float32),
+                                       ('cpu', torch.float64)))
+    out = dict(card_vs_cpu=errs(card, cpu), card_vs_f64=errs(card, f64),
+               cpu_vs_f64=errs(cpu, f64))
+    log(f'LPIPS-squeeze robust, f32: value {float(card[0]):.6f} on the card, '
+        f'{float(cpu[0]):.6f} on the CPU; relative errors {out}')
+    bad = {k: v for k, v in out['card_vs_cpu'].items()
+           if not v <= (1e-4 if k == 'value' else 1e-2)}
+    if bad:
+        fail(f'LPIPS-squeeze card vs CPU: {bad}')
+    return out
+
+
+def drive_squeeze():
+    """The squeeze path: SQ_STEPS Adam steps on six 160x160 patches and
+    the seven layers' latents under LPIPS-squeeze robust (the public LPIPS
+    API, net='squeeze', TF32 off), every launch count set to 0 just before
+    and read just after: one grouped K4 forward a step and one backward a
+    layer. The loss must stay finite and fall."""
+    import torch
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.losses.lpips import LPIPS
+    dev = torch.device('cuda')
+    a, b, _ = squeeze_batch(1)
+    lp = LPIPS(dev, net='squeeze')
+    lats = lp.init_adaptive().to(dev)
+    x = a.to(dev).requires_grad_()
+    b = b.to(dev)
+    opt = torch.optim.Adam([x, *lats.parameters()], lr=1e-2)
+    reset_launches()
+    t0 = time.time()
+    losses = []
+    for _ in range(SQ_STEPS):
+        opt.zero_grad()
+        loss = torch.mean(lp(x, b, use_robust=True, adaptive=lats,
+                             normalize=True))
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    log(f'squeeze path: loss {losses[0]:.5f} -> {losses[-1]:.5f} in '
+        f'{SQ_STEPS} steps, {1e3 * wall / SQ_STEPS:.2f} ms/step; launches '
+        f'{launches}')
+    names = squeeze_names()
+    want = {names[0]: SQ_STEPS}
+    for m, c in SQ_K4:
+        key = f'robust_rho_bwd[{m}x{c}]'
+        want[key] = want.get(key, 0) + SQ_STEPS
+    wrong = {k: launches.get(k, 0) for k, v in want.items()
+             if launches.get(k, 0) != v}
+    if wrong or not all(map(lambda v: v == v and abs(v) < 1e30, losses)) \
+            or not losses[-1] < losses[0]:
+        fail(f'squeeze path: launches {wrong} (expected {want}), losses '
+             f'{losses}')
+    return launches, dict(losses=losses, ms_per_step=1e3 * wall / SQ_STEPS)
+
+
+def check_weight_sources():
+    """The converted weight sources on the card: a torchvision-keyed
+    AlexNet state_dict (random, from a seed) written with torch.save is
+    found through NPP_TPU_TORCH_WEIGHTS (report 'torch'); the same weights
+    as an HWIO npz through NPP_TPU_WEIGHTS_DIR (report 'weights_dir', which
+    wins over the .pth, as in npp_tpu) give the same LPIPS-alex value."""
+    import numpy as np
+    import torch
+    from npp_tpu_torch.losses.lpips import LPIPS
+    from npp_tpu_torch.nn.features import ALEX_CONV_SHAPES
+    from npp_tpu_torch.nn.pretrained import weight_reports
+    d = os.path.join(ROOT, 'npp_tpu_torch', 'build', 'smoke_weights')
+    os.makedirs(d, exist_ok=True)
+    g = torch.Generator().manual_seed(0)
+    state, flat = {}, {}
+    for n, (i, (kh, kw, cin, cout)) in enumerate(zip(
+            (0, 3, 6, 8, 10), ALEX_CONV_SHAPES.values())):
+        w = torch.randn(cout, cin, kh, kw, generator=g) / (kh * kw * cin) ** .5
+        bias = 0.1 * torch.randn(cout, generator=g)
+        state[f'features.{i}.weight'], state[f'features.{i}.bias'] = w, bias
+        flat[f'conv{n}/kernel'] = w.numpy().transpose(2, 3, 1, 0)
+        flat[f'conv{n}/bias'] = bias.numpy()
+    torch.save(state, os.path.join(d, 'alexnet_tv.pth'))
+    np.savez(os.path.join(d, 'alexnet_tv.npz'), **flat)
+    a, b, _ = squeeze_batch(2)
+    dev = torch.device('cuda')
+    out = {}
+    saved = {k: os.environ.pop(k, None) for k in ('NPP_TPU_TORCH_WEIGHTS',
+                                                  'NPP_TPU_WEIGHTS_DIR')}
+    try:
+        for env in ({'NPP_TPU_TORCH_WEIGHTS': d},
+                    {'NPP_TPU_TORCH_WEIGHTS': d, 'NPP_TPU_WEIGHTS_DIR': d}):
+            os.environ.update(env)
+            with torch.no_grad():
+                v = float(torch.mean(LPIPS(dev, net='alex')(
+                    a.to(dev), b.to(dev), normalize=True)))
+            src = weight_reports()['alexnet_tv'].source
+            out[src] = v
+            log(f'weights {sorted(env)}: alexnet_tv from {src!r}, LPIPS-alex '
+                f'{v:.7f}')
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    if sorted(out) != ['torch', 'weights_dir'] or \
+            abs(out['torch'] - out['weights_dir']) > 1e-6 * abs(out['torch']):
+        fail(f'weight sources: {out}')
+    return out
+
+
+def drive_seam():
+    """The completion with comp_seam='residual', 11 iterations: the
+    composite is the seam-corrected one, made by the port's inpainting
+    library on the host at every eval; its host time per call is taken
+    around the library."""
+    import numpy as np
+    import npp_tpu_torch.models.completion as completion
+    calls = []
+    inpaint = completion.inpaint_ns
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = inpaint(*args, **kw)
+        calls.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    completion.inpaint_ns = timed
+    try:
+        launches, history, _, final = drive(
+            'seam path', ['periodic_embed', 'bias_snake_fwd',
+                          'bias_snake_bwd', 'robust_rho_fwd',
+                          'robust_rho_bwd'], N_iters=11, comp_seam='residual')
+    finally:
+        completion.inpaint_ns = inpaint
+    if not np.array_equal(final['pred_rgb_img_comp'],
+                          final['pred_rgb_img_comp_seam']) or not calls:
+        fail('seam path: the composite is not the seam composite')
+    log(f"seam path: val_psnr {final['val_psnr']:.3f} vs val_psnr_seam "
+        f"{final['val_psnr_seam']:.3f}; val_lpips_seam "
+        f"{final['val_lpips_seam']:.5f}; inpainting {len(calls)} calls, "
+        f"{np.median(calls):.2f} ms each (median) on the host")
+    return launches, dict(
+        ms_per_step=[h['ms_per_step'] for h in history],
+        val_psnr=final['val_psnr'], val_psnr_seam=final['val_psnr_seam'],
+        val_lpips=final['val_lpips'], val_lpips_seam=final['val_lpips_seam'],
+        inpaint_host_ms=calls)
+
+
 
 
 def main():
@@ -2137,7 +2490,7 @@ def main():
         kernels = check_k1(gen) + check_k1_bwd(gen) + check_k2(gen) + \
             check_k4(gen) + check_k4_wide(gen) + check_k1_seg(gen) + \
             k2_entries(gen, SEG_K2, SEG_K2_NAMES) + check_k1_batched(gen) + \
-            check_batch_kernels(gen)
+            check_batch_kernels(gen) + check_k4_squeeze(gen)
         for k in kernels:
             err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
                    f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
@@ -2162,6 +2515,8 @@ def main():
         slic = check_slic()
         det, i_train, img = check_search_detection()
         check_search_step(det, i_train, img)
+        inpaint = check_inpaint()
+        squeeze_card_vs_cpu = check_lpips_squeeze()
     cosines = check_tf32_gradients()
     bf16_name = 'periodic_embed_bf16'
     on_search = set(search_names())
@@ -2169,13 +2524,14 @@ def main():
     on_warp = {'periodic_embed_bwd'}
     on_seg = seg_names()
     on_batch, on_suite = batch_names(), suite_names()
+    on_squeeze = set(squeeze_names())
     log("main path and bf16-table path: matmul_precision='bfloat16' (the "
         "default), TF32 on in the steps and the render")
     main_launches, history, peak, _ = drive(
         'main path', [k['name'] for k in kernels
                       if k['name'] != bf16_name and k['name'] not in
                       on_search | on_remap | on_warp | on_seg | on_batch |
-                      on_suite],
+                      on_suite | on_squeeze],
         N_iters=21)
     bf16_launches, bf16_history, _, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
@@ -2186,6 +2542,9 @@ def main():
     remap_launches, remap = drive_remap()
     heldout = drive_heldout()
     warp_launches, warp = drive_warp()
+    log("seam path: comp_seam='residual', the default CompletionConfig "
+        "widths")
+    _, seam = drive_seam()
     log("search path: the default SearchConfig (matmul_precision="
         "'bfloat16': TF32 in the fit; the eval in full f32)")
     odgt, stats, search_launches, search_peak = drive_search()
@@ -2210,8 +2569,15 @@ def main():
     log("entry points from files: cli search, cli complete and "
         "scripts/torch_run_suite.py in subprocesses on the card")
     entry = drive_entry_points()
+    log("squeeze path: LPIPS-squeeze robust at the completion's robust "
+        "batch, TF32 off")
+    with matmul_precision('float32'):
+        squeeze_launches, squeeze = drive_squeeze()
+    log('weight sources: a .pth and a weights-dir npz on the card')
+    weights = check_weight_sources()
     for k in kernels:
         k['launches'] = (bf16_launches if k['name'] == bf16_name else
+                         squeeze_launches if k['name'] in on_squeeze else
                          batch_launches if k['name'] in on_batch else
                          suite_launches if k['name'] in on_suite else
                          seg_launches if k['name'] in on_seg else
@@ -2234,6 +2600,10 @@ def main():
                                   h['ms_per_step'] for h in bf16_history],
                               'peak_bytes': peak},
                       'remap': remap, 'heldout': heldout, 'warp': warp,
+                      'seam': seam, 'inpaint_golden': inpaint,
+                      'squeeze': dict(squeeze,
+                                      card_vs_cpu=squeeze_card_vs_cpu),
+                      'weight_sources': weights,
                       'blur_map': blur, 'steps_card_vs_cpu': steps,
                       'segmentation': seg, 'slic': slic,
                       'batched': batched, 'suite_search': suite,

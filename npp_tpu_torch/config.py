@@ -90,9 +90,9 @@ class FitConfig(BaseConfig):
     aux_gate_ratio: float = 0.0         # drop aux proposals ranked worse than
                                         # ratio x top-1 distance (0 = off)
 
-    # The warp field (nn/warp.py) and the held-out blocks with their
-    # snapshot policy (models/heldout.py) are ported; comp_seam='residual'
-    # (it needs cv2.inpaint) raises NotImplementedError (see ROADMAP.md).
+    # The warp field (nn/warp.py), the held-out blocks with their
+    # snapshot policy (models/heldout.py) and the seam-aware residual
+    # composite (comp_seam='residual', models/completion.py).
     warp_field: bool = False
     warp_width: int = 32
     warp_depth: int = 2

@@ -2,7 +2,8 @@
 
 Port of `npp_tpu/losses/contextual.py` (reference:
 externel_lib/contextual_loss/functional.py:9-63,127-186 and
-modules/contextual.py:9-68), cosine path, with npp_tpu's spatial mask
+modules/contextual.py:9-68): the cosine path (the one the fits use) and
+the 'l1' and 'l2' distances, with npp_tpu's spatial mask
 (the search's cx_mask_pad) and a per-sample form (one value per sample,
 the search's eval of each candidate). Plain PyTorch; the similarity chain
 is the K3 kernel of a later slice (ROADMAP.md).
@@ -58,6 +59,27 @@ def _cosine_from_mean(x: torch.Tensor, y: torch.Tensor,
     return 1.0 - torch.clamp(sim, 0.0, 1.0)
 
 
+def compute_l1_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """|sum_c (x(p) - y(q))| (reference: functional.py:166-177: the channel
+    sum is taken before the abs, with no channel normalisation), NHWC."""
+    n, h, w, c = x.shape
+    xs = torch.sum(x.reshape(n, h * w, c), dim=-1)   # (N, P)
+    ys = torch.sum(y.reshape(n, h * w, c), dim=-1)
+    return torch.clamp(torch.abs(xs[:, :, None] - ys[:, None, :]), min=0.0)
+
+
+def compute_l2_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Squared euclidean distances (reference: functional.py:166-186),
+    NHWC."""
+    n, h, w, c = x.shape
+    xv = x.reshape(n, h * w, c)
+    yv = y.reshape(n, h * w, c)
+    x_s = torch.sum(xv ** 2, dim=-1)  # (N, P)
+    y_s = torch.sum(yv ** 2, dim=-1)
+    ab = torch.bmm(xv, yv.transpose(1, 2))
+    return torch.clamp(y_s[:, None, :] - 2 * ab + x_s[:, :, None], min=0.0)
+
+
 def compute_relative_distance(dist_raw: torch.Tensor) -> torch.Tensor:
     dist_min = torch.amin(dist_raw, dim=2, keepdim=True)
     return dist_raw / (dist_min + 1e-5)
@@ -70,6 +92,7 @@ def compute_cx(dist_tilde: torch.Tensor, band_width: float) -> torch.Tensor:
 
 def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
                     weight: Optional[torch.Tensor] = None,
+                    loss_type: str = 'cosine',
                     valid: Optional[torch.Tensor] = None,
                     feat_valid: Optional[torch.Tensor] = None,
                     per_sample: bool = False,
@@ -82,12 +105,21 @@ def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
     per_sample: return (N,) values, each sample's loss as if it were called
     alone (weight and valid are then not taken). groups: the samples are
     that many equal groups (images), and the result is (groups,), each
-    group's loss as if it were called alone."""
+    group's loss as if it were called alone. loss_type: 'cosine', or the
+    'l1' or 'l2' distance (which have no mean shift: feat_valid,
+    per_sample and groups then act only on the match and its mean)."""
     if per_sample and (weight is not None or valid is not None):
         raise ValueError('per_sample takes no weight or valid')
     if groups is not None and feat_valid is not None:
         raise ValueError('groups take no feat_valid')
-    dist_raw = compute_cosine_distance(x, y, feat_valid, per_sample, groups)
+    if loss_type == 'cosine':
+        dist_raw = compute_cosine_distance(x, y, feat_valid, per_sample,
+                                           groups)
+    elif loss_type in ('l1', 'l2'):
+        dist_raw = (compute_l1_distance if loss_type == 'l1'
+                    else compute_l2_distance)(x, y)
+    else:
+        raise ValueError(f'unsupported loss_type {loss_type!r}')
     if feat_valid is not None:
         fv = feat_valid.reshape(feat_valid.shape[0], -1)  # (N, P)
         fvd = fv.to(dist_raw.dtype)

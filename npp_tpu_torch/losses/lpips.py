@@ -1,13 +1,13 @@
 """LPIPS perceptual metric/loss in PyTorch, NHWC at its public call.
 
 Port of `npp_tpu/losses/lpips.py` (reference: externel_lib/lpips/lpips.py:
-27-133) for the VGG and AlexNet towers, including the repo's two
-modifications: per-layer adaptive-robust diffs (`use_robust`,
+27-133) for the VGG, AlexNet and SqueezeNet towers, including the repo's
+two modifications: per-layer adaptive-robust diffs (`use_robust`,
 lpips.py:103-113), whose rho goes through K4
 (losses/robust.py::weighted_nll_rows_group, one forward launch for the
-five layers) with the lin head as the channel weight, and spatial mode
-(each layer's map up-sampled to the input, lpips.py:115-124), which the
-segmentation refinement reads. The squeeze net is not ported.
+five layers, or the squeeze net's seven) with the lin head as the channel
+weight, and spatial mode (each layer's map up-sampled to the input,
+lpips.py:115-124), which the segmentation refinement reads.
 """
 from __future__ import annotations
 
@@ -18,9 +18,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.features import (ALEX_CONV_SHAPES, ALEX_LPIPS_TAPS, VGG16_BLOCKS,
-                           VGG16_LPIPS_TAPS, AlexNetFeatures, VGGFeatures,
-                           vgg_conv_shapes)
+from ..nn.features import (ALEX_CONV_SHAPES, ALEX_LPIPS_TAPS,
+                           SQUEEZE_LPIPS_TAPS, VGG16_BLOCKS, VGG16_LPIPS_TAPS,
+                           AlexNetFeatures, SqueezeNetFeatures, VGGFeatures,
+                           squeeze_conv_shapes, vgg_conv_shapes)
 from ..nn.pretrained import load_lpips_lins, load_tower_params
 from .robust import (AdaptiveLossParams, adaptive_init,
                      weighted_nll_rows_group)
@@ -29,7 +30,8 @@ _SHIFT = np.asarray([-0.030, -0.088, -0.188], np.float32)
 _SCALE = np.asarray([0.458, 0.448, 0.450], np.float32)
 
 LPIPS_CHNS = {'vgg': (64, 128, 256, 512, 512),
-              'alex': (64, 192, 384, 256, 256)}
+              'alex': (64, 192, 384, 256, 256),
+              'squeeze': (64, 128, 256, 384, 384, 512, 512)}
 
 
 def normalize_tensor(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
@@ -65,8 +67,7 @@ class LPIPS:
     def __init__(self, device: torch.device, net: str = 'vgg',
                  dtype: torch.dtype = torch.float32):
         if net not in LPIPS_CHNS:
-            raise NotImplementedError(
-                f"LPIPS net {net!r} is not ported (ROADMAP.md)")
+            raise ValueError(f'unsupported LPIPS net {net!r}')
         self.chns = LPIPS_CHNS[net]
         if net == 'vgg':
             self.taps: Sequence[str] = VGG16_LPIPS_TAPS
@@ -74,6 +75,11 @@ class LPIPS:
             self.tower = VGGFeatures(
                 load_tower_params('vgg16', shapes, len(shapes), device),
                 VGG16_BLOCKS, dtype)
+        elif net == 'squeeze':
+            self.taps = SQUEEZE_LPIPS_TAPS
+            self.tower = SqueezeNetFeatures(
+                load_tower_params('squeeze_tv', squeeze_conv_shapes(), None,
+                                  device), dtype)
         else:
             self.taps = ALEX_LPIPS_TAPS
             self.tower = AlexNetFeatures(

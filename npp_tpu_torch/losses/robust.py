@@ -44,9 +44,19 @@ def expm1_safe(x):
     return torch.expm1(torch.clamp(x, max=_EXP_MAX))
 
 
+def exp_safe(x):
+    return torch.exp(torch.clamp(x, max=_EXP_MAX))
+
+
 def affine_sigmoid(logits, lo=0.0, hi=1.0):
     """Maps reals to (lo, hi); 0 -> (lo+hi)/2 (reference: util.py:64-72)."""
     return torch.sigmoid(logits) * (hi - lo) + lo
+
+
+def inv_affine_sigmoid(probs, lo=0.0, hi=1.0):
+    """The inverse of affine_sigmoid (reference: util.py:75-84), numpy."""
+    p = (probs - lo) / (hi - lo)
+    return -np.log(1.0 / p - 1.0)
 
 
 def affine_softplus(x, lo=0.0, ref=1.0):
@@ -151,6 +161,16 @@ def adaptive_alpha(p: AdaptiveLossParams, alpha_lo=0.001, alpha_hi=1.999):
 
 def adaptive_scale(p: AdaptiveLossParams, scale_lo=1e-5, scale_init=1.0):
     return affine_softplus(p.latent_scale, scale_lo, scale_init)
+
+
+def adaptive_lossfun(x: torch.Tensor, p: AdaptiveLossParams,
+                     alpha_lo=0.001, alpha_hi=1.999,
+                     scale_lo=1e-5, scale_init=1.0) -> torch.Tensor:
+    """Element-wise NLL of a rank-2 residual [batch, num_dims]
+    (reference: adaptive.py:182-204), plain PyTorch; the fits' hot paths
+    take weighted_nll_rows instead, whose rho goes through K4."""
+    return nllfun(x, adaptive_alpha(p, alpha_lo, alpha_hi),
+                  adaptive_scale(p, scale_lo, scale_init))
 
 
 def weighted_nll_rows_group(xs: Sequence[torch.Tensor],

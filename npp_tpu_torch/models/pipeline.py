@@ -29,19 +29,6 @@ from .trainer import (COMPLETION_TASK, FitConsts, FitState, TaskSpec,
                       init_fit_state, make_fit_block, make_render)
 
 
-def check_slice(cfg) -> None:
-    """Options not ported yet raise instead of silently doing something
-    else (ROADMAP.md lists them). Every SegmentationConfig option and
-    feature_dtype are ported."""
-    unported = {
-        "comp_seam='residual'": cfg.comp_seam != 'none',
-    }
-    for name, on in unported.items():
-        if on:
-            raise NotImplementedError(
-                f'{name} is not ported to npp_tpu_torch yet (see ROADMAP.md)')
-
-
 def feature_dtype(cfg) -> torch.dtype:
     """torch.bfloat16 for feature_dtype='bfloat16', else float32, as
     npp_tpu reads the field."""
@@ -154,7 +141,6 @@ def fit_image(cfg, data: TaskData,
     kind='train' event at every log and a kind='fit_done' event at the
     end (npp_tpu/models/pipeline.py:134,257,287-289)."""
     device = resolve_device(device)
-    check_slice(cfg)
     tf32 = allows_tf32(cfg.matmul_precision)
     print(f'[fit] matmul_precision={cfg.matmul_precision!r}: on the card, '
           f'the steps and the render run f32 matmuls and convolutions '

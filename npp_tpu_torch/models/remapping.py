@@ -22,7 +22,7 @@ from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse, mse2psnr
 from ..utils.io import write_gray, write_rgb
 from .loaders import TaskData, load_remapping, remapping_data
-from .pipeline import FitState, check_slice, fit_image
+from .pipeline import FitState, fit_image
 from .trainer import TaskSpec
 
 REMAPPING_TASK = TaskSpec(name='remapping', use_style=True,
@@ -78,7 +78,6 @@ def run_remapping(cfg, save: bool = True, device=None,
     device='cpu' is passed; the blur map runs there too. Returns (fit
     result, final outputs, evals by iteration)."""
     device = resolve_device(device)
-    check_slice(cfg)
     with matmul_precision('float32'):
         data = load_remapping(cfg, device) if data is None else \
             remapping_data(data, cfg, device)

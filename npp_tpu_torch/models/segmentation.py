@@ -21,7 +21,7 @@ from ..losses.lpips import LPIPS
 from ..nn.pretrained import weight_reports
 from ..utils.io import write_gray, write_rgb
 from .loaders import load_segmentation, segmentation_data
-from .pipeline import check_slice, fit_image
+from .pipeline import fit_image
 from .trainer import FitState, TaskSpec
 
 SEGMENTATION_TASK = TaskSpec(name='segmentation')
@@ -207,7 +207,6 @@ def run_segmentation(cfg, save: bool = True, device=None,
     Returns (fit result, refinements by iteration, task data); the
     coarse mask is the data's extra['non_period_mask']."""
     device = resolve_device(device)
-    check_slice(cfg)
     with matmul_precision('float32'):
         data = load_segmentation(cfg, device) if data is None else \
             segmentation_data(data, cfg, device)

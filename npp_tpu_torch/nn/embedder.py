@@ -33,6 +33,16 @@ def gaussian_freq_bands(gen: torch.Generator, num_freqs: int,
     return bands.to(device) if device is not None else bands
 
 
+def log_freq_bands(num_freqs: int, max_freq_log2: float) -> torch.Tensor:
+    """2^linspace bands (reference: embedder.py:23-24, sampling='log')."""
+    return 2.0 ** torch.linspace(0.0, max_freq_log2, num_freqs)
+
+
+def linear_freq_bands(num_freqs: int, max_freq_log2: float) -> torch.Tensor:
+    """Linear bands (reference: embedder.py:38-39, default branch)."""
+    return torch.linspace(2.0 ** 0.0, 2.0 ** max_freq_log2, num_freqs)
+
+
 def fourier_encode(x: torch.Tensor, freq_bands: torch.Tensor,
                    include_input: bool = True) -> torch.Tensor:
     """x: (..., C) -> (..., C * (include_input + 2*len(freq_bands))),

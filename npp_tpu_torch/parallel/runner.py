@@ -28,7 +28,7 @@ import torch
 from ..device import matmul_precision, resolve_device
 from ..models.loaders import TaskData
 from ..models.pipeline import (_sync, block_plan, build_components,
-                               check_slice, make_fit_consts)
+                               make_fit_consts)
 from ..models.trainer import (FitState, TaskSpec, init_fit_state,
                               make_render, table_guard)
 from ..nn.embedder import make_task_embedder
@@ -84,7 +84,6 @@ def fit_images(cfg, task: TaskSpec, datas: Sequence[TaskData],
     - stats: a dict to fill with per-bucket 'buckets' records (images,
       canvas, table dtype, wall, ms per step of the steady blocks)."""
     device = resolve_device(device)
-    check_slice(cfg)
     n_iters = n_iters if n_iters is not None else cfg.N_iters - 1
     overrides = [dict(o) for o in per_image] if per_image is not None \
         else [{} for _ in datas]

@@ -6,8 +6,10 @@ Usage:
   python scripts/torch_run_suite.py --input-root DIR [--tasks completion,...]
       [--out OUT] [--device cpu|cuda] [--batched] [--batched-search]
       [--iters-scale S] [--only SUBSTR,...] [--aux-gate-ratio R]
-      [--comp-heldout N] [--comp-snapshot last|best] [--rank-iters N]
-      [--set KEY=VALUE ...]
+      [--comp-heldout N] [--comp-snapshot last|best]
+      [--comp-seam none|residual] [--seg-color-criterion on|off]
+      [--seg-hysteresis H] [--seg-texture-criterion on|off]
+      [--preset quality] [--rank-iters N] [--set KEY=VALUE ...]
 
 DIR/<task>/input/<name>/ holds each example's four PNGs (masked_img,
 gt_img, unknown_mask, valid_mask). Every example is searched (one search
@@ -15,11 +17,17 @@ per image, or with --batched-search one lockstep ranking fit for all of
 them, proposal/search.py::run_search_suite), then fitted (one fit_image
 per image, or with --batched all of a task's images stacked in one fit,
 parallel/runner.py::fit_images), then each image runs the port's post-fit
-code: the completion's composite and val_lpips, the remapping's
-evaluation, the segmentation's refinement. Writes OUT/<task>/detected,
-OUT/<task>/results and OUT/summary.json. Runs on the card unless
---device cpu is given. The seam-aware composite (--comp-seam residual and
---preset quality) is not ported yet (ROADMAP.md A.1) and raises.
+code: the completion's composites (the seam-aware one too) and their
+LPIPS, the remapping's evaluation, the segmentation's refinement. Writes
+OUT/<task>/detected, OUT/<task>/results and OUT/summary.json. Runs on the
+card unless --device cpu is given.
+
+--preset quality is scripts/run_suite.py's measured best configuration:
+three times the completion's iterations (at the reference's eval cadence,
+with the adaptive scale floored at 0.01), the seam-aware composite, two
+held-out blocks with the 'best' snapshot, and the segmentation's colour
+and texture criteria with hysteresis 0.5. Flags given explicitly win over
+the preset (--iters-scale too: then the iterations are not tripled).
 """
 import argparse
 import copy
@@ -42,8 +50,9 @@ def parse_args(argv=None):
     ap.add_argument('--out', default='suite_out')
     ap.add_argument('--device', default=None,
                     help="'cpu' or 'cuda' (default: the card)")
-    ap.add_argument('--iters-scale', type=float, default=1.0,
-                    help='scale every task N_iters and i_testset')
+    ap.add_argument('--iters-scale', type=float, default=None,
+                    help='scale every task N_iters and i_testset '
+                         '(default 1)')
     ap.add_argument('--only', default=None,
                     help='comma-separated example-name substrings')
     ap.add_argument('--aux-gate-ratio', type=float, default=None,
@@ -54,12 +63,18 @@ def parse_args(argv=None):
     ap.add_argument('--batched-search', action='store_true',
                     help='one lockstep ranking fit for every search '
                          '(proposal/search.py::run_search_suite)')
-    ap.add_argument('--comp-heldout', type=int, default=0)
-    ap.add_argument('--comp-snapshot', default='last',
-                    choices=['last', 'best'])
-    ap.add_argument('--comp-seam', default='none',
-                    choices=['none', 'residual'])
-    ap.add_argument('--preset', default=None, choices=['quality'])
+    # None: not given, so the preset or the plain default fills it
+    ap.add_argument('--comp-heldout', type=int, default=None)
+    ap.add_argument('--comp-snapshot', default=None, choices=['last', 'best'])
+    ap.add_argument('--comp-seam', default=None, choices=['none', 'residual'])
+    ap.add_argument('--seg-color-criterion', default=None,
+                    choices=['on', 'off'])
+    ap.add_argument('--seg-hysteresis', type=float, default=None)
+    ap.add_argument('--seg-texture-criterion', default=None,
+                    choices=['on', 'off'])
+    ap.add_argument('--preset', default=None, choices=['quality'],
+                    help="'quality': scripts/run_suite.py's measured best "
+                         'configuration (see the module docstring)')
     ap.add_argument('--rank-iters', type=int, default=None,
                     help="override the search's SearchConfig.N_iters")
     ap.add_argument('--set', action='append', default=[],
@@ -67,10 +82,19 @@ def parse_args(argv=None):
                     help='override a task-config field, applied last '
                          '(cli.py value coercion; repeatable)')
     args = ap.parse_args(argv)
-    if args.comp_seam != 'none' or args.preset == 'quality':
-        raise SystemExit("--comp-seam residual and --preset quality need "
-                         "the seam-aware composite, which is not ported "
-                         "yet (ROADMAP.md A.1)")
+    quality = args.preset == 'quality'
+    for key, plain, preset in (
+            ('comp_seam', 'none', 'residual'), ('comp_heldout', 0, 2),
+            ('comp_snapshot', 'last', 'best'),
+            ('seg_color_criterion', 'off', 'on'),
+            ('seg_hysteresis', 1.0, 0.5),
+            ('seg_texture_criterion', 'off', 'on')):
+        if getattr(args, key) is None:
+            setattr(args, key, preset if quality else plain)
+    # the preset triples the completion's iterations unless a scale is given
+    args.quality_iters = quality and args.iters_scale is None
+    if args.iters_scale is None:
+        args.iters_scale = 1.0
     return args
 
 
@@ -110,9 +134,22 @@ def task_config(args, task, det_dir, res_root):
     cfg = replace(cls(), datadir=det_dir, basedir=res_root,
                   aux_gate_ratio=gate)
     if task == 'completion':
-        cfg = replace(cfg, comp_heldout=args.comp_heldout,
+        cfg = replace(cfg, comp_seam=args.comp_seam,
+                      comp_heldout=args.comp_heldout,
                       comp_snapshot=args.comp_snapshot)
-    if args.iters_scale != 1.0:
+    if task == 'segmentation':
+        cfg = replace(cfg,
+                      seg_color_criterion=args.seg_color_criterion == 'on',
+                      seg_texture_criterion=args.seg_texture_criterion == 'on',
+                      seg_refine_hysteresis=args.seg_hysteresis)
+    if args.quality_iters and task == 'completion':
+        # 3x the iterations at the reference's eval cadence, so the 'best'
+        # snapshot can still pick the reference budget's milestone; the
+        # floor keeps the adaptive pixel scale from collapsing in the
+        # extended fit (scripts/run_suite.py:312-335)
+        cfg = replace(cfg, adaptive_scale_lo=0.01,
+                      N_iters=max(2, int(cfg.N_iters * 3.0)))
+    elif args.iters_scale != 1.0:
         cfg = replace(cfg, N_iters=max(2, int(cfg.N_iters * args.iters_scale)),
                       i_testset=max(1, int(cfg.i_testset * args.iters_scale)))
     return apply_sets(cfg, args.set)
@@ -152,10 +189,13 @@ def post_fit(task, cfg, name, st, ctx, data_eval, snaps, device, towers):
     oh, ow = data_b.orig_shape
     with matmul_precision('float32'):
         if task == 'completion':
-            from npp_tpu_torch.models.completion import (compose_outputs,
-                                                         evaluate)
+            from npp_tpu_torch.models.completion import (
+                OUTPUT_KEYS, compose_outputs, evaluate, final_lpips)
+            seam = dict(comp_seam=cfg.comp_seam,
+                        normalize_type=cfg.normalize_type, compute_seam=True)
             final = evaluate(data_b, st.params, render,
-                             st.params.adaptive_pix, cfg.loss_type, device)
+                             st.params.adaptive_pix, cfg.loss_type, device,
+                             **seam)
             final['snapshot_iter'] = cfg.N_iters - 1
             best = (final.get('heldout_psnr', -np.inf), None, None)
             for it, params in snaps:
@@ -166,19 +206,13 @@ def post_fit(task, cfg, name, st, ctx, data_eval, snaps, device, towers):
             if best[1] is not None:
                 final = compose_outputs(best[2][0], data_b,
                                         best[2][1].adaptive_pix,
-                                        cfg.loss_type, device)
+                                        cfg.loss_type, device, **seam)
                 final['snapshot_iter'] = best[1]
-            percep = ctx['components'].percep or towers.setdefault(
-                'vgg', LPIPS(device, net='vgg'))
-            comp = torch.as_tensor(final['pred_rgb_img_comp'],
-                                   dtype=torch.float32, device=device)[None]
-            gt = torch.as_tensor((data_b.img * data_b.valid_mask)[:oh, :ow],
-                                 dtype=torch.float32, device=device)[None]
-            with torch.no_grad():
-                final['val_lpips'] = float(torch.mean(
-                    percep(comp, gt, normalize=True)))
+            final_lpips(final, data_b, ctx['components'].percep or
+                        towers.setdefault('vgg', LPIPS(device, net='vgg')),
+                        device)
             d = os.path.join(save_dir, 'testset_final')
-            for key in ('pred_rgb_img', 'pred_rgb_img_comp'):
+            for key in OUTPUT_KEYS:
                 write_rgb(os.path.join(d, f'{key}.png'), final[key])
         elif task == 'segmentation':
             from npp_tpu_torch.models.segmentation import (
@@ -272,11 +306,16 @@ def main(argv=None):
     device = resolve_device(args.device)
     timer = PhaseTimer()
     summary = {'tasks': {}, 'env': {'device': str(device)},
-               'options': {'batched': args.batched,
+               'options': {'preset': args.preset, 'batched': args.batched,
                            'batched_search': args.batched_search,
                            'iters_scale': args.iters_scale,
+                           'comp_seam': args.comp_seam,
                            'comp_heldout': args.comp_heldout,
                            'comp_snapshot': args.comp_snapshot,
+                           'seg_color_criterion': args.seg_color_criterion,
+                           'seg_texture_criterion':
+                               args.seg_texture_criterion,
+                           'seg_hysteresis': args.seg_hysteresis,
                            'aux_gate_ratio': args.aux_gate_ratio,
                            'set': args.set}}
     if device.type == 'cuda':

@@ -210,25 +210,16 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_unported_options_raise():
-    """comp_seam='residual' and LPIPS-squeeze still raise with a pointer
-    to ROADMAP.md; the warp field, the held-out blocks, the
-    'best' snapshot, the style loss, the segmentation options and
-    feature_dtype='bfloat16' are ported and pass check_slice, and
-    LPIPS-alex builds."""
+    """Nothing of npp_tpu's one-card options is left unported: the option
+    gate (check_slice) is gone, LPIPS builds all three of npp_tpu's nets
+    (squeeze since the seam slice), and an unknown net raises as in
+    npp_tpu."""
+    import npp_tpu_torch.models.pipeline as pipeline
     from npp_tpu_torch.losses.lpips import LPIPS
-    from npp_tpu_torch.models.pipeline import check_slice
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        check_slice(TC.replace(TC.CompletionConfig(), comp_seam='residual'))
-    for kw in ({'warp_field': True}, {'comp_heldout': 2},
-               {'comp_snapshot': 'best'}):
-        check_slice(TC.replace(TC.CompletionConfig(), **kw))
-    check_slice(TC.RemappingConfig())
-    check_slice(TC.replace(TC.CompletionConfig(), feature_dtype='bfloat16'))
-    for kw in ({'seg_color_criterion': True}, {'seg_refine_protect': True},
-               {'seg_texture_criterion': True}, {'seg_autocal': 'on'},
-               {'seg_refine_hysteresis': 0.5}):
-        check_slice(TC.replace(TC.SegmentationConfig(), **kw))
-    assert LPIPS(torch.device('cpu'), net='alex').chns == (64, 192, 384, 256,
-                                                           256)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        LPIPS(torch.device('cpu'), net='squeeze')
+    assert not hasattr(pipeline, 'check_slice')
+    cpu = torch.device('cpu')
+    assert LPIPS(cpu, net='alex').chns == (64, 192, 384, 256, 256)
+    assert LPIPS(cpu, net='squeeze').chns == (64, 128, 256, 384, 384, 512,
+                                              512)
+    with pytest.raises(ValueError, match='unsupported LPIPS net'):
+        LPIPS(cpu, net='resnet')

@@ -162,9 +162,55 @@ def test_torch_run_suite_script_on_the_cpu(tmp_path):
     assert set(recs) == {'ex1', 'ex2'}
     for name, rec in recs.items():
         assert np.isfinite(rec['val_psnr']) and np.isfinite(rec['val_lpips'])
+        # the final evals make the seam outputs (run_suite.py:483, :529)
+        assert np.isfinite(rec['val_psnr_seam'])
+        assert np.isfinite(rec['val_lpips_seam'])
         assert 'top_periods' in rec
         final = out / 'completion' / 'results' / 'completion_top3' / \
-            name / 'testset_final' / 'pred_rgb_img_comp.png'
-        assert final.exists(), final
+            name / 'testset_final'
+        for png in ('pred_rgb_img_comp.png', 'pred_rgb_img_comp_seam.png'):
+            assert (final / png).exists(), final / png
     assert summary['options']['batched'] and \
         summary['options']['batched_search']
+
+
+def test_torch_run_suite_quality_preset():
+    """--preset quality has scripts/run_suite.py's meaning: the seam
+    composite, two held-out blocks with the 'best' snapshot, the
+    segmentation's colour and texture criteria at hysteresis 0.5, and
+    three times the completion's iterations at the reference's eval
+    cadence with the adaptive scale floored at 0.01; a flag given
+    explicitly wins, and --iters-scale replaces the tripling."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'torch_run_suite', os.path.join(ROOT, 'scripts', 'torch_run_suite.py'))
+    suite = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(suite)
+    from npp_tpu_torch.config import CompletionConfig, SegmentationConfig
+
+    args = suite.parse_args(['--input-root', 'in', '--preset', 'quality'])
+    comp = suite.task_config(args, 'completion', 'det', 'res')
+    assert (comp.comp_seam, comp.comp_heldout, comp.comp_snapshot) == \
+        ('residual', 2, 'best')
+    assert comp.N_iters == 3 * CompletionConfig().N_iters
+    assert comp.i_testset == CompletionConfig().i_testset
+    assert comp.adaptive_scale_lo == 0.01
+    seg = suite.task_config(args, 'segmentation', 'det', 'res')
+    assert seg.seg_color_criterion and seg.seg_texture_criterion
+    assert seg.seg_refine_hysteresis == 0.5
+    assert seg.N_iters == SegmentationConfig().N_iters
+
+    args = suite.parse_args(['--input-root', 'in', '--preset', 'quality',
+                             '--comp-seam', 'none', '--iters-scale', '0.5',
+                             '--seg-hysteresis', '1.0'])
+    comp = suite.task_config(args, 'completion', 'det', 'res')
+    assert comp.comp_seam == 'none' and comp.comp_snapshot == 'best'
+    assert comp.N_iters == int(CompletionConfig().N_iters * 0.5)
+    assert comp.adaptive_scale_lo == CompletionConfig().adaptive_scale_lo
+    assert suite.task_config(args, 'segmentation', 'det',
+                             'res').seg_refine_hysteresis == 1.0
+
+    plain = suite.task_config(suite.parse_args(['--input-root', 'in']),
+                              'completion', 'det', 'res')
+    assert (plain.comp_seam, plain.comp_heldout, plain.N_iters) == \
+        ('none', 0, CompletionConfig().N_iters)
