@@ -103,10 +103,33 @@ Phases, in order; any failure exits non-zero:
     then the weight sources: a .pth found through NPP_TPU_TORCH_WEIGHTS
     and the same weights as an npz through NPP_TPU_WEIGHTS_DIR, the same
     LPIPS-alex value;
-17. one JSON line of kernels (with the search's, the remapping's, the
+17. multi-card path (parallel/{mesh,multihost,launch}.py), ranks started
+    by launch.spawn, each on its own card (resolve_device(None) must give
+    it): (a) NCCL at torch.cuda.device_count() ranks: fit_images on
+    phase 13's three images over the 'images' axis, 21 iterations, each
+    image's parameters within the spread of phase 13's two unsharded runs
+    (or 1e-4 of each tensor's largest value), and make_sharded_render of
+    image 0 at 384x512 equal to make_render's (bit for bit, or within
+    1e-6); (b) two gloo ranks sharing the card: the same fit (three
+    images padded to four, two a rank) and render, each image held the
+    same way to an unsharded fit of its rank's block ([0, 1], [2, 2]:
+    stacks of other sizes round otherwise, which the CX term carries far
+    in 20 steps; the distance from the three-image runs is reported
+    beside an unsharded [2, 2] fit's), rank_proposals of the flagship's
+    nine detected candidates over a 'candidates' axis (padded to ten) in
+    full f32 within 1e-4 relative of the unsharded call in the same rank
+    with the same top-3, and run_search_suite of phase 14's three images
+    over an 'images' axis with phase 14's top-3; (c) torch.distributed.run
+    --nproc-per-node=<card count> scripts/torch_run_suite.py --batched
+    --batched-search on phase 15's three examples, whose summary.json
+    must give phase 15's records' keys and top-3. Per rank: the wall,
+    the steady ms/step, the peak memory and K1's, K2's and K4's launches,
+    each count set to 0 just before and read just after;
+18. one JSON line of kernels (with the search's, the remapping's, the
     warp's, the segmentation's and the batched paths' shapes and
-    launches), the paths' walls and metrics, the nvidia-smi line, and the
-    final {"ok": true, "device": {...}} line.
+    launches, and the multi-card ranks' launches by kernel), the paths'
+    walls and metrics, the nvidia-smi line, and the final
+    {"ok": true, "device": {...}} line.
 """
 import concurrent.futures
 import json
@@ -1905,7 +1928,7 @@ def drive_batched():
     from npp_tpu_torch.utils.synthetic import synthetic_data
     cfg = replace(CompletionConfig(), N_iters=21, i_testset=10, i_print=10)
     datas = [synthetic_data(s) for s in (0, 1, 2)]
-    out = {}
+    out, runs = {}, {}
 
     def run(label, cfg_, datas_, **kw):
         torch.cuda.reset_peak_memory_stats()
@@ -1915,6 +1938,7 @@ def drive_batched():
         states, ctxs = fit_images(cfg_, COMPLETION_TASK, datas_,
                                   return_ctx=True, device='cuda',
                                   stats=stats, **kw)
+        runs.setdefault(label, []).append(host_params(states))
         torch.cuda.synchronize()
         wall = time.time() - t0
         launches = launch_counts()
@@ -1953,8 +1977,8 @@ def drive_batched():
     all_launches = dict(launches)
 
     prof = BlockProfile(10, 20)
-    fit_images(cfg, COMPLETION_TASK, datas, device='cuda',
-               milestone_hook=prof)
+    runs['batched path'].append(host_params(fit_images(
+        cfg, COMPLETION_TASK, datas, device='cuda', milestone_hook=prof)))
     out['batched'].update(profiled_device_ms_per_step=prof.device_ms / 10,
                           profiled_wall_ms_per_step=prof.wall_ms / 10,
                           busy_share=prof.device_ms / prof.wall_ms)
@@ -1998,7 +2022,13 @@ def drive_batched():
     out['batched_warp'] = res
     all_launches['periodic_embed_batched_bwd'] = \
         launches['periodic_embed_batched_bwd']
-    return all_launches, out
+    return all_launches, out, runs['batched path']
+
+
+def host_params(states):
+    """Each FitState's named parameters as numpy arrays."""
+    return [{k: v.detach().cpu().numpy()
+             for k, v in st.params.named_parameters()} for st in states]
 
 
 def _suite_against_sequential(cfgs, datas, odgts, label, bar):
@@ -2096,7 +2126,14 @@ def drive_suite_search():
                           sequential_walls_s=seq_walls,
                           fit_ms_per_step=stats['fit_ms_per_step'],
                           rank_s=stats['rank_s'], detect_s=stats['detect_s'],
-                          distances_tf32=report, distances_f32=report32)
+                          distances_tf32=report, distances_f32=report32,
+                          top3=[top3(o) for o in odgts])
+
+
+def top3(odgt):
+    """A search record's three best lattices: shifts, angles, periods."""
+    return [odgt[k][:3] for k in ('selected_shifts', 'selected_angles',
+                                  'selected_periods')]
 
 
 def _run(label, cmd, timeout=900):
@@ -2477,6 +2514,255 @@ def drive_seam():
 
 
 
+# ---- the multi-card slice: the mesh over torch.distributed ranks
+
+MC_PATHS = ('nccl', 'gloo_two_ranks_one_card')
+K_BASE = ('periodic_embed_batched', 'bias_snake_fwd', 'bias_snake_bwd',
+          'robust_rho_fwd', 'robust_rho_bwd')
+MC_DEADLINE = 400.0
+
+
+def _multicard_rank(flagship=None):
+    """One rank of the multi-card phase, in a process of
+    npp_tpu_torch/parallel/launch.py::spawn (its group joined, its card
+    current): fit_images on the flagship seeds 0-2 with the images over
+    the group's ranks (default CompletionConfig, 21 iterations), every
+    launch count set to 0 just before and read just after; image 0
+    rendered pixel-sharded and by make_render. With `flagship` (the
+    search's detection of seed 0) also rank_proposals of its candidates
+    unsharded and over a 'candidates' axis in full f32, and
+    run_search_suite of phase 14's three images over an 'images' axis,
+    each counted the same way."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from npp_tpu_torch.config import CompletionConfig, SearchConfig, replace
+    from npp_tpu_torch.device import resolve_device
+    from npp_tpu_torch.kernels import launch_counts, reset_launches
+    from npp_tpu_torch.models.trainer import COMPLETION_TASK
+    from npp_tpu_torch.parallel.batch import make_sharded_render
+    from npp_tpu_torch.parallel.mesh import make_mesh
+    from npp_tpu_torch.parallel.runner import fit_images
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    group = dist.group.WORLD
+    rank = dist.get_rank()
+    dev = resolve_device(None)
+    own = torch.device('cuda', rank % torch.cuda.device_count())
+    if dev != own:
+        raise RuntimeError(f'rank {rank} resolved {dev}, its card is {own}')
+    out = {'rank': rank, 'device': str(dev), 'backend': dist.get_backend()}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        rec = {'wall_s': time.time() - t0,
+               'peak_bytes': torch.cuda.max_memory_allocated(),
+               'launches': {k: v for k, v in launch_counts().items() if v}}
+        return res, rec
+
+    cfg = replace(CompletionConfig(), N_iters=21, i_testset=10, i_print=10)
+    datas = [synthetic_data(s) for s in (0, 1, 2)]
+    stats = {}
+    (states, ctxs), out['fit'] = counted(lambda: fit_images(
+        cfg, COMPLETION_TASK, datas, return_ctx=True, stats=stats,
+        mesh=make_mesh(('images',), group=group)))
+    mine = stats['buckets'][0]['ranks'][rank]
+    out['fit'].update(images=mine['images'],
+                      ms_per_step_steady=mine['ms_per_step_steady'])
+    out['params'] = host_params(states)
+    render = make_sharded_render(cfg, ctxs[0]['embedder'],
+                                 make_mesh(('pixels',), group=group))
+    got = render(states[0].params, 384, 512)
+    want = ctxs[0]['render'](states[0].params, 384, 512)
+    out['render'] = {'bit_equal': bool(torch.equal(got, want)),
+                     'max_abs_diff': float((got - want).abs().max()),
+                     'finite': bool(torch.isfinite(got).all()),
+                     'shape': tuple(got.shape)}
+    if flagship is None:
+        return out
+    from npp_tpu_torch.losses.contextual import ContextualLoss
+    from npp_tpu_torch.losses.lpips import LPIPS
+    from npp_tpu_torch.proposal.ranking import rank_proposals
+    from npp_tpu_torch.proposal.search import run_search_suite
+    from npp_tpu_torch.utils.synthetic import synthetic_search_data
+    percep, cx = LPIPS(dev, net='vgg'), ContextualLoss(dev)
+    scfg = replace(SearchConfig(), matmul_precision='float32')
+    args = (scfg, flagship['masked_img'], flagship['i_train'],
+            flagship['i_val'], flagship['all_angles'],
+            flagship['all_periods'], percep, cx)
+    plain = rank_proposals(*args, norm_res=flagship['norm_res'], device=dev)
+    sharded, out['ranking'] = counted(lambda: rank_proposals(
+        *args, norm_res=flagship['norm_res'], device=dev,
+        mesh=make_mesh(('candidates',), group=group)))
+    out['ranking'].update(plain=plain.tolist(), sharded=sharded.tolist())
+    cfgs = [replace(SearchConfig(), datadir=f'suite{s}') for s in (0, 1, 2)]
+    odgts, out['suite'] = counted(lambda: run_search_suite(
+        cfgs, percep, cx, device=dev, save=False,
+        datas=[synthetic_search_data(s) for s in (0, 1, 2)],
+        mesh=make_mesh(('images',), group=group)))
+    out['suite']['top3'] = [top3(o) for o in odgts]
+    return out
+
+
+def _within_spread(got, runs):
+    """(excess, image, name): the largest excess of a parameter over the
+    two runs' spread, in units of its tensor's largest value."""
+    import numpy as np
+    worst = (0.0, None, None)
+    for j, g in enumerate(got):
+        for k, v in g.items():
+            a, b = runs[0][j][k], runs[1][j][k]
+            lo, hi = np.minimum(a, b), np.maximum(a, b)
+            excess = float(np.maximum(lo - v, v - hi).max(initial=0.0)) / \
+                max(float(np.abs(a).max()), 1e-30)
+            worst = max(worst, (excess, j, k), key=lambda t: t[0])
+    return worst
+
+
+def drive_multicard(batched_params, batched_ms, suite, entry):
+    """(a) NCCL at the card count, (b) two gloo ranks sharing card 0, (c)
+    scripts/torch_run_suite.py under torchrun; see the module note (phase
+    17). batched_params: phase 13's two unsharded runs' parameters;
+    batched_ms: their steady ms per step. Returns the per-rank records."""
+    import functools
+    import shutil
+    import numpy as np
+    import torch
+    from npp_tpu_torch.config import CompletionConfig, SearchConfig, replace
+    from npp_tpu_torch.models.trainer import COMPLETION_TASK
+    from npp_tpu_torch.parallel.launch import spawn
+    from npp_tpu_torch.parallel.runner import fit_images
+    from npp_tpu_torch.utils.synthetic import synthetic_data
+    from npp_tpu_torch.proposal.search import _prepare_search
+    from npp_tpu_torch.utils.synthetic import synthetic_search_data
+    torch.cuda.empty_cache()
+    base = os.path.join(ROOT, 'npp_tpu_torch', 'build', 'multicard')
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    count = torch.cuda.device_count()
+    prep = _prepare_search(replace(SearchConfig(), datadir='flagship'),
+                           synthetic_search_data(0), torch.device('cuda'))
+    flagship = {k: prep[k] for k in ('masked_img', 'i_train', 'i_val',
+                                     'all_angles', 'all_periods')}
+    flagship['norm_res'] = (prep['dh'], prep['dw'])
+    n_cand = len(flagship['all_angles'])
+    # the references: (a) stacks all three images on its one rank, as
+    # phase 13's runs did; (b)'s ranks stack [0, 1] and [2, 2]. Stacks of
+    # other sizes pick other cuBLAS and cuDNN algorithms, whose rounding
+    # the CX term carries far in 20 Adam steps, so (b) is held to
+    # unsharded fits of its ranks' blocks, and its distance from the
+    # three-image runs is reported beside that of an unsharded [2, 2] fit
+    cfg = replace(CompletionConfig(), N_iters=21, i_testset=10, i_print=10)
+    datas = [synthetic_data(s) for s in (0, 1, 2)]
+    blocks = host_params(fit_images(cfg, COMPLETION_TASK, datas[:2],
+                                    device='cuda')) + \
+        host_params(fit_images(cfg, COMPLETION_TASK, [datas[2]] * 2,
+                               device='cuda'))[:1]
+    refs = {'nccl': batched_params, 'gloo_two_ranks_one_card': [blocks] * 2}
+    stacking, _, _ = _within_spread(blocks[2:], [r[2:] for r in
+                                                 batched_params])
+    log(f'multi-card: an unsharded fit of images [2, 2] lies {stacking:.3e} '
+        f"of a tensor's largest value beyond phase 13's three-image runs")
+    out, problems = {'stacking_excess_image2': stacking}, []
+    for label, world, backend, kw in zip(MC_PATHS, (count, 2),
+                                         ('nccl', 'gloo'),
+                                         ({}, {'flagship': flagship})):
+        t0 = time.time()
+        ranks = spawn(functools.partial(_multicard_rank, **kw), world,
+                      backend, os.path.join(base, f'init_{label}'),
+                      timeout=MC_DEADLINE, cuda=True, threads=None)
+        wall = time.time() - t0
+        for r in ranks:
+            f = r['fit']
+            log(f"multi-card {label}, rank {r['rank']} on {r['device']} "
+                f"({r['backend']}): fit of images {f['images']} "
+                f"{f['wall_s']:.2f} s wall, steady {f['ms_per_step_steady']:.2f}"
+                f" ms/step, peak {f['peak_bytes'] / 2**30:.2f} GiB, launches "
+                f"{ {k: f['launches'].get(k, 0) for k in K_BASE} }; render "
+                f"{r['render']}")
+            for part in ('ranking', 'suite'):
+                if part in r:
+                    p = r[part]
+                    log(f"multi-card {label}, rank {r['rank']} {part}: "
+                        f"{p['wall_s']:.2f} s wall, peak "
+                        f"{p['peak_bytes'] / 2**30:.2f} GiB, launches "
+                        f"{ {k: p['launches'].get(k, 0) for k in K_BASE} }")
+            for k in K_BASE:
+                if f['launches'].get(k, 0) <= 0:
+                    problems.append(f'{label}: rank {r["rank"]} launched no '
+                                    f'{k} in its fit')
+            if not (r['render']['bit_equal'] or
+                    r['render']['max_abs_diff'] <= 1e-6) or \
+                    not r['render']['finite']:
+                problems.append(f'{label}: sharded render {r["render"]}')
+            excess, j, name = _within_spread(r['params'], refs[label])
+            three, _, _ = _within_spread(r['params'], batched_params)
+            log(f"multi-card {label}, rank {r['rank']}: parameters beyond "
+                f"the unsharded references' spread by at most {excess:.3e} "
+                f"of the tensor's largest value (bar 1e-4; image {j} "
+                f"{name}); beyond phase 13's three-image runs by {three:.3e}")
+            if excess > 1e-4:
+                problems.append(f'{label}: rank {r["rank"]} parameters '
+                                f'{excess:.3e} beyond the unsharded spread')
+            r['fit'].update(params_excess=excess,
+                            params_excess_over_three_image_runs=three)
+            del r['params']
+        out[label] = {'world': world, 'wall_s': wall, 'ranks': ranks}
+    ms = out['nccl']['ranks'][0]['fit']['ms_per_step_steady']
+    out['nccl']['ms_per_step_over_unsharded'] = ms / batched_ms
+    log(f'multi-card nccl: {ms:.2f} ms/step against phase 13\'s unsharded '
+        f'{batched_ms:.2f} ({ms / batched_ms:.3f}x)')
+    for r in out['gloo_two_ranks_one_card']['ranks']:
+        rk, su = r['ranking'], r['suite']
+        plain, sharded = np.asarray(rk['plain']), np.asarray(rk['sharded'])
+        rel = float(np.max(np.abs(sharded - plain) / np.abs(plain)))
+        rk['max_rel_diff'] = rel
+        same3 = list(np.argsort(plain)[:3]) == list(np.argsort(sharded)[:3])
+        log(f"multi-card ranking, rank {r['rank']}: {n_cand} candidates over "
+            f'2 ranks (padded to {-(-n_cand // 2) * 2}), full f32: max rel '
+            f'diff from the unsharded call {rel:.3e}, same top-3 {same3}')
+        if rel > 1e-4 or not same3:
+            problems.append(f'ranking: {sharded} against unsharded {plain}')
+        for k in K_BASE[1:]:
+            if rk['launches'].get(k, 0) <= 0 or su['launches'].get(k, 0) <= 0:
+                problems.append(f'ranking/suite: rank {r["rank"]} launched '
+                                f'no {k}')
+        same = su['top3'] == suite['top3']
+        log(f"multi-card suite search, rank {r['rank']}: each image's top-3 "
+            f"equals phase 14's: {same}")
+        if not same:
+            problems.append(f"suite search: top-3 {su['top3']} against "
+                            f"phase 14's {suite['top3']}")
+    if problems:
+        fail(f'multi-card: {problems}')
+    suite_in = os.path.join(ROOT, 'npp_tpu_torch', 'build', 'smoke_files',
+                            'suite')
+    tr_out = os.path.join(base, 'torchrun_out')
+    _, wall = _run('torchrun torch_run_suite.py', [
+        sys.executable, '-m', 'torch.distributed.run', '--standalone',
+        f'--nproc-per-node={count}',
+        os.path.join(ROOT, 'scripts', 'torch_run_suite.py'),
+        '--input-root', suite_in, '--out', tr_out, '--tasks', 'completion',
+        '--batched', '--batched-search', '--iters-scale', '0.0055'],
+        timeout=300)
+    with open(os.path.join(tr_out, 'summary.json')) as f:
+        summary = json.load(f)
+    recs, want = summary['tasks']['completion'], entry['suite']
+    if sorted(recs) != sorted(want) or any(
+            set(recs[n]) != set(want[n]) or
+            recs[n]['top_periods'] != want[n]['top_periods'] for n in want):
+        fail(f'torchrun suite summary {recs} against phase 15\'s {want}')
+    log(f"multi-card entry point: torchrun with {count} rank(s), "
+        f"{wall:.1f} s; records' keys and top-3 equal phase 15's")
+    out['torchrun'] = {'world': summary['env']['world'], 'wall_s': wall,
+                       'phases': summary['phases']}
+    return out
+
+
 def main():
     name, smi = phase_device()
     import torch
@@ -2563,7 +2849,7 @@ def main():
     seg_launches, seg = drive_segment()
     log("batched paths: fit_images at the default CompletionConfig widths, "
         "TF32 in the steps and the render")
-    batch_launches, batched = drive_batched()
+    batch_launches, batched, batched_params = drive_batched()
     log("suite search: run_search_suite at the default SearchConfig")
     suite_launches, suite = drive_suite_search()
     log("entry points from files: cli search, cli complete and "
@@ -2575,6 +2861,12 @@ def main():
         squeeze_launches, squeeze = drive_squeeze()
     log('weight sources: a .pth and a weights-dir npz on the card')
     weights = check_weight_sources()
+    log('multi-card path: fit_images, make_sharded_render, rank_proposals '
+        'and run_search_suite over torch.distributed ranks, and '
+        'torch_run_suite.py under torchrun')
+    multicard = drive_multicard(batched_params,
+                                batched['batched']['ms_per_step_steady'],
+                                suite, entry)
     for k in kernels:
         k['launches'] = (bf16_launches if k['name'] == bf16_name else
                          squeeze_launches if k['name'] in on_squeeze else
@@ -2585,6 +2877,13 @@ def main():
                          remap_launches if k['name'] in on_remap else
                          warp_launches if k['name'] in on_warp else
                          main_launches).get(k['name'], 0)
+    for k in kernels:
+        base = k['name'].split('[')[0]
+        k['multicard_launches'] = {
+            f'{label}/{part}': [r[part]['launches'].get(base, 0)
+                                for r in multicard[label]['ranks']]
+            for label in MC_PATHS for part in ('fit', 'ranking', 'suite')
+            if part in multicard[label]['ranks'][0]}
     search = {k: v for k, v in stats.items() if k != 'fit_losses'}
     search.update(peak_bytes=search_peak,
                   fit_loss_first_last=[float(stats['fit_losses'][0]),
@@ -2607,7 +2906,7 @@ def main():
                       'blur_map': blur, 'steps_card_vs_cpu': steps,
                       'segmentation': seg, 'slic': slic,
                       'batched': batched, 'suite_search': suite,
-                      'entry_points': entry,
+                      'entry_points': entry, 'multicard': multicard,
                       'search': search,
                       'search_chained': {
                           'patch_size': chained.patch_size,

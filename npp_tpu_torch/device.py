@@ -15,12 +15,17 @@ import torch
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """None -> 'cuda'. Raises RuntimeError if CUDA is asked for and absent."""
+    """None -> this process's card: 'cuda:<current device>', which is the
+    rank's own card once a process group's rank has set it
+    (parallel/multihost.py). Raises RuntimeError if CUDA is asked for and
+    absent."""
     dev = torch.device('cuda' if device is None else device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
             "npp_tpu_torch: CUDA was requested (the default) but no CUDA "
             "device is available; pass device='cpu' to run on the CPU")
+    if device is None:
+        dev = torch.device('cuda', torch.cuda.current_device())
     return dev
 
 

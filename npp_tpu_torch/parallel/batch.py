@@ -1,6 +1,5 @@
-"""Multi-image batched fits on one card: B independent per-image
-optimisations advanced by one step at a time, a port of
-`npp_tpu/parallel/batch.py` without the mesh.
+"""Multi-image batched fits: B independent per-image optimisations
+advanced by one step at a time, a port of `npp_tpu/parallel/batch.py`.
 
 Where npp_tpu vmaps its per-image loss and shards the image axis over
 chips, the port stacks the images on a leading axis inside one step:
@@ -31,6 +30,11 @@ its sequential fit_image would draw, the counterpart of the key that
 npp_tpu broadcasts to all images (batch.py:108-115). The draws and the
 patch gathers run per image on the host's stream; the MLP and the losses
 run once for the stack.
+
+Over a mesh (parallel/mesh.py) each rank stacks only its block of the
+images (parallel/runner.py::fit_images) and `gather_fit_state` gathers
+the stacked state back to every rank; `make_sharded_render` renders one
+image with its pixels split over the ranks.
 """
 from __future__ import annotations
 
@@ -44,11 +48,13 @@ from torch import nn
 from ..device import matmul_precision
 from ..kernels.periodic_embed import periodic_embed_batched
 from ..losses.robust import AdaptiveLossParams
-from ..models.trainer import (COMPLETION_TASK, FitConsts, FitParams, FitState,
-                              TaskSpec, draw_batch, fit_step, image_losses,
+from ..models.trainer import (COMPLETION_TASK, RENDER_CHUNK, FitConsts,
+                              FitParams, FitState, TaskSpec, draw_batch,
+                              embed_coords, fit_step, image_losses,
                               make_schedule)
 from ..nn.embedder import TaskEmbedder
 from ..nn.mlp import StackedLinear, render_activation
+from .mesh import Mesh, gather_leading_axis
 
 
 @dataclasses.dataclass
@@ -251,6 +257,32 @@ def unstack_fit_state(state_b: FitState, template: FitParams,
     return FitState(params, opt, state_b.step)
 
 
+def gather_fit_state(state_b: FitState, template: FitParams, mesh: Mesh,
+                     n: int, axis: str = 'images') -> FitState:
+    """The stacked FitState of all n images, on every rank and its device,
+    from each rank's block `state_b` along `axis`: every stacked parameter
+    and Adam moment all-gathered (mesh.py::gather_leading_axis), the
+    padding dropped. Adam's step count is every rank's own (they step
+    together)."""
+    full = stack_modules([template] * n)
+    opt_b = state_b.optimizer
+    group = opt_b.param_groups[0]
+    opt = torch.optim.Adam(full.parameters(), lr=group['lr'],
+                           betas=group['betas'], eps=group['eps'])
+    with torch.no_grad():
+        for p, pb in zip(full.parameters(), state_b.params.parameters()):
+            p.copy_(gather_leading_axis(pb, mesh, axis, n))
+            st = opt_b.state.get(pb)
+            if st:
+                opt.state[p] = {
+                    'step': st['step'].clone(),
+                    'exp_avg': gather_leading_axis(st['exp_avg'], mesh, axis,
+                                                   n),
+                    'exp_avg_sq': gather_leading_axis(st['exp_avg_sq'], mesh,
+                                                      axis, n)}
+    return FitState(full, opt, state_b.step)
+
+
 def init_batched_state(cfg, state0: FitState, n: int) -> FitState:
     """B copies of one image's initial state (batch.py:193-206: every
     image initialises from the same seed, so their inits are equal) with
@@ -355,3 +387,36 @@ def make_batched_fit_block(cfg, emb_b: StackedEmbedder,
         return metrics
 
     return run_block
+
+
+def make_sharded_render(cfg, embedder, mesh: Mesh, pixels_axis: str = 'pixels',
+                        chunk: int = RENDER_CHUNK):
+    """render(params, h, w) -> (H, W, 3) with the coordinate axis split over
+    `pixels_axis` (batch.py:209-237): the H*W coordinates padded to a
+    multiple of (axis size x chunk), each rank renders its block chunk by
+    chunk as models/trainer.py::make_render does, under
+    cfg.matmul_precision, and the blocks are all-gathered and cropped. The
+    blocks are whole chunks, so chunk boundaries fall where make_render's
+    do; only a last partial chunk is rendered at full length here."""
+    parts = mesh.shape[pixels_axis]
+
+    @torch.no_grad()
+    def render(params: FitParams, h: int, w: int) -> torch.Tensor:
+        dev = embedder.angles.device
+        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+                                torch.arange(w, device=dev), indexing='ij')
+        coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+        n = coords.shape[0]
+        per_rank = -(-n // (parts * chunk)) * chunk
+        coords = torch.cat([coords, coords.new_zeros(
+            (per_rank * parts - n, 2))])
+        r = mesh.index(pixels_axis)
+        with matmul_precision(cfg.matmul_precision):
+            out = torch.cat([
+                render_activation(params.mlp(embed_coords(params, embedder,
+                                                          c)),
+                                  cfg.normalize_type)
+                for c in coords[r * per_rank:(r + 1) * per_rank].split(chunk)])
+        return gather_leading_axis(out, mesh, pixels_axis, n).reshape(h, w, 3)
+
+    return render

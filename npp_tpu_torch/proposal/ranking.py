@@ -21,8 +21,16 @@ over them, one K4 launch each way over 2,048 x 3 * B * n_cand), each
 image drawing its own batches from a generator seeded as its one-image
 ranking seeds its one, so each image's fit is its sequential one; then
 each image's own eval (npp_tpu ranking.py:326-535). The one-image fit is
-its B = 1 case (fit_candidates, rank_loss, Lattices.render). npp_tpu's
-candidate mesh is not ported (one card).
+its B = 1 case (fit_candidates, rank_loss, Lattices.render).
+
+Over a mesh (parallel/mesh.py), rank_proposals splits the candidates
+over its 'candidates' axis and rank_proposals_suite the images over its
+'images' axis (npp_tpu ranking.py:134-170, 326-370): each rank fits and
+scores its block, and the score components are gathered to every rank
+in order. The candidates and the images are independent (every
+candidate starts from the same init and sees its image's draws, which
+do not depend on how many candidates share them), so a sharded ranking
+equals the unsharded one up to the rounding of stacked products.
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from ..models.trainer import make_schedule
 from ..nn.embedder import (fourier_encode, gaussian_freq_bands,
                            normalize_coords, periodic_warp)
 from ..nn.mlp import NPPNetLight, render_activation
+from ..parallel.mesh import (Mesh, gather_leading_axis, image_sharding,
+                             mean_over_mesh)
 
 RENDER_CHUNK = 1 << 14
 CX_GROUP_BYTES = 1 << 33   # the CX chain's (P, P) matrices per group
@@ -69,6 +79,16 @@ def combine_scores(cfg, comps: dict) -> dict:
         'mse': d_pix,
         'heldout_mse': d_ref + w_pix * d_pix,
     }
+
+
+def pad_candidates(a, n: int):
+    """a (numpy or torch) with its leading candidate axis padded to n by
+    repeating candidate 0 (npp_tpu's padding; the padded scores are
+    discarded)."""
+    k = len(a)
+    if isinstance(a, np.ndarray):
+        return np.concatenate([a, np.repeat(a[:1], n - k, 0)], 0)
+    return torch.cat([a, a[:1].expand((n - k,) + tuple(a.shape[1:]))], 0)
 
 
 def _eval_inputs(cfg, i_val, norm_res):
@@ -276,7 +296,9 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
                    norm_res=None, return_components: bool = False,
                    params_override: Optional[dict] = None,
                    bands_override: Optional[Sequence[float]] = None,
-                   device=None, stats: Optional[dict] = None):
+                   device=None, stats: Optional[dict] = None,
+                   mesh: Optional[Mesh] = None,
+                   cand_axis: str = 'candidates'):
     """Distance per candidate (lower = better periodicity), as npp_tpu's
     rank_proposals. Runs on the card unless device='cpu' is passed.
 
@@ -287,15 +309,33 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
     params_from_jax of npp_tpu's stacked tree) to score without fitting;
     bands_override: the Fourier bands. stats: a dict to fill with the
     phases' walls ('fit_s', 'fit_ms_per_step', 'eval_s' and the eval's
-    split) and the fit's per-step losses ('fit_losses')."""
+    split) and the fit's per-step losses ('fit_losses').
+
+    mesh: split the candidates over its `cand_axis` (padded to a multiple
+    of the axis by repeating candidate 0, as npp_tpu pads): each rank
+    fits and scores its block from the same init with the same pixel
+    draws; the components are gathered to every rank in candidate order
+    and the fit's losses averaged over the ranks."""
     device = resolve_device(device)
     h, w = masked_img.shape[:2]
     norm_res = norm_res if norm_res is not None else (h, w)
-    n_cand = len(all_angles)
+    n_real = len(all_angles)
+    angles = np.asarray(all_angles, np.float32)
+    periods = np.asarray(all_periods, np.float32)
+    if mesh is not None:
+        sh = image_sharding(mesh, cand_axis)
+        n_pad, rows = sh.padded(n_real), sh.rows(n_real)
+        angles = pad_candidates(angles, n_pad)[rows]
+        periods = pad_candidates(periods, n_pad)[rows]
+        if params_override is not None:
+            params_override = {'mlp': {
+                k: pad_candidates(v, n_pad)[rows]
+                for k, v in params_override['mlp'].items()}}
+    n_cand = len(angles)
     bands = bands_override if bands_override is not None else \
         gaussian_freq_bands(torch.Generator().manual_seed(cfg.seed),
                             cfg.multires)
-    lat = Lattices(cfg, all_angles, all_periods, bands, norm_res, device)
+    lat = Lattices(cfg, angles, periods, bands, norm_res, device)
     img = torch.as_tensor(np.asarray(masked_img), dtype=torch.float32,
                           device=device)
     params = init_rank_params(cfg, n_cand, device)
@@ -316,6 +356,8 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
             losses = fit_candidates(
                 params, lat, img, pool,
                 torch.Generator().manual_seed(cfg.seed + 1), cfg.N_iters)
+            if mesh is not None:
+                losses = mean_over_mesh(losses, mesh)
             losses = losses.cpu().numpy()
             fit_s = time.time() - t0
             stats.update(fit_s=fit_s, fit_losses=losses,
@@ -328,16 +370,27 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
                                 _eval_inputs(cfg, i_val, norm_res), percep,
                                 contextual, stats)
         stats['eval_s'] = time.time() - t0
+    if mesh is not None:
+        comps = gather_components(comps, mesh, cand_axis, n_real, device)
     scores = combine_scores(cfg, comps)
     distances = scores[getattr(cfg, 'rank_proxy', 'reference')]
-    for c in range(n_cand):
-        print(f'[search] candidate {c + 1}/{n_cand} '
+    for c in range(n_real):
+        print(f'[search] candidate {c + 1}/{n_real} '
               f'distance={distances[c]:.4f} '
               f'(ref={scores["reference"][c]:.4f} '
               f'mse={comps["val_mse"][c]:.5f})')
     if return_components:
         return np.asarray(distances), comps
     return np.asarray(distances)
+
+
+def gather_components(comps: Dict[str, np.ndarray], mesh: Mesh, axis: str,
+                      n: int, device: torch.device) -> Dict[str, np.ndarray]:
+    """Each rank's score components (blocks of a leading axis), gathered
+    to every rank through the rank's device, the padding dropped."""
+    return {k: gather_leading_axis(torch.as_tensor(v, device=device), mesh,
+                                   axis, n).cpu().numpy()
+            for k, v in comps.items()}
 
 
 def fit_candidates_suite(params: RankParams, lats: Sequence[Lattices],
@@ -387,7 +440,9 @@ def slice_rank_params(cfg, params: RankParams, j: int, n_cand: int,
 
 def rank_proposals_suite(cfg, items, percep: LPIPS,
                          contextual: ContextualLoss, device=None,
-                         stats: Optional[dict] = None):
+                         stats: Optional[dict] = None,
+                         mesh: Optional[Mesh] = None,
+                         images_axis: str = 'images'):
     """Rank every image of a suite with one lockstep fit over (images x
     candidates), then score each image with its own eval_candidates
     (npp_tpu ranking.py:412::rank_proposals_suite). items: per image
@@ -395,7 +450,13 @@ def rank_proposals_suite(cfg, items, percep: LPIPS,
     'all_angles', 'all_periods', 'norm_res' (its tight dims). Runs on the
     card unless device='cpu' is passed. Returns [(distances, comps)] in
     item order. stats: 'fit_s', 'fit_ms_per_step', 'eval_s' and the
-    fit's per-step losses ('fit_losses')."""
+    fit's per-step losses ('fit_losses').
+
+    mesh: split the images over its `images_axis` (padded to a multiple
+    of the axis by repeating the last image): each rank fits its block
+    with each image's own generator and scores each of its images; the
+    components are gathered to every rank in item order and the losses
+    averaged over the ranks."""
     device = resolve_device(device)
     if not items:
         raise ValueError('rank_proposals_suite needs at least one item')
@@ -405,13 +466,17 @@ def rank_proposals_suite(cfg, items, percep: LPIPS,
     stats = {} if stats is None else stats
     n_reals = [len(it['all_angles']) for it in items]
     n_cand = max(max(n_reals), int(getattr(cfg, 'rank_pad_candidates', 0)))
+    n_img = len(items)
+    if mesh is not None:
+        sh = image_sharding(mesh, images_axis)
+        items = (list(items) + [items[-1]] * (sh.padded(n_img) - n_img))[
+            sh.rows(n_img)]
     nb = len(items)
     bands = gaussian_freq_bands(torch.Generator().manual_seed(cfg.seed),
                                 cfg.multires)
 
     def padded(a):   # pad by repeating candidate 0 (discarded)
-        a = np.asarray(a, np.float32)
-        return np.concatenate([a, np.repeat(a[:1], n_cand - len(a), 0)], 0)
+        return pad_candidates(np.asarray(a, np.float32), n_cand)
 
     lats = [Lattices(cfg, padded(it['all_angles']), padded(it['all_periods']),
                      bands, it['norm_res'], device) for it in items]
@@ -434,23 +499,29 @@ def rank_proposals_suite(cfg, items, percep: LPIPS,
         losses = fit_candidates_suite(
             params, lats, imgs, pools,
             [torch.Generator().manual_seed(cfg.seed + 1) for _ in items],
-            angles, periods, cfg.N_iters).cpu().numpy()
+            angles, periods, cfg.N_iters)
+        if mesh is not None:
+            losses = mean_over_mesh(losses, mesh)
+        losses = losses.cpu().numpy()
         fit_s = time.time() - t0
         stats.update(fit_s=fit_s, fit_losses=losses,
                      fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
         print(f'[search-suite] fit: {cfg.N_iters} steps of {nb} x {n_cand} '
               f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step', flush=True)
         t0 = time.time()
-        out = []
-        for j, it in enumerate(items):
-            comps = eval_candidates(
-                cfg, slice_rank_params(cfg, params, j, n_cand, device),
-                lats[j], imgs[j], it['i_val'],
-                _eval_inputs(cfg, it['i_val'], it['norm_res']), percep,
-                contextual)
-            comps = {k: v[:n_reals[j]] for k, v in comps.items()}
-            scores = combine_scores(cfg, comps)
-            out.append((np.asarray(scores[getattr(cfg, 'rank_proxy',
-                                                  'reference')]), comps))
+        comps = [eval_candidates(
+            cfg, slice_rank_params(cfg, params, j, n_cand, device), lats[j],
+            imgs[j], it['i_val'], _eval_inputs(cfg, it['i_val'],
+                                               it['norm_res']),
+            percep, contextual) for j, it in enumerate(items)]
         stats['eval_s'] = time.time() - t0
+    comps = {k: np.stack([c[k] for c in comps]) for k in comps[0]}
+    if mesh is not None:
+        comps = gather_components(comps, mesh, images_axis, n_img, device)
+    out = []
+    for j in range(n_img):
+        cj = {k: v[j, :n_reals[j]] for k, v in comps.items()}
+        scores = combine_scores(cfg, cj)
+        out.append((np.asarray(scores[getattr(cfg, 'rank_proxy',
+                                              'reference')]), cj))
     return out

@@ -23,6 +23,7 @@ import torch
 from ..device import resolve_device
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
+from ..parallel.mesh import Mesh
 from ..utils.io import read_example_dir, write_gray, write_odgt, write_rgb
 from ..utils.visualizer import GridProgram, mask2ltrb
 from .pseudo_mask import build_pseudo_split
@@ -193,7 +194,8 @@ def run_search(cfg, percep: Optional[LPIPS] = None,
 def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
                      contextual: Optional[ContextualLoss] = None,
                      device=None, datas=None, save: bool = True,
-                     stats: Optional[dict] = None) -> list:
+                     stats: Optional[dict] = None, mesh: Optional[Mesh] = None,
+                     images_axis: str = 'images') -> list:
     """Search every image of a suite with one lockstep ranking fit
     (npp_tpu/proposal/search.py:223-278). Detection, the pseudo-split and
     the record stay per image. The images are padded to the largest
@@ -201,7 +203,11 @@ def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
     normalised by each image's tight dims. datas: the images' arrays
     (utils/io.py::read_example_dir's form) instead of their cfg.datadir.
     Returns the odgt records in cfg order. stats: the phase walls
-    ('detect_s', 'rank_s', 'artefacts_s', 'total_s') and the ranking's."""
+    ('detect_s', 'rank_s', 'artefacts_s', 'total_s') and the ranking's.
+    mesh: the ranking's images split over its `images_axis`
+    (rank_proposals_suite); every rank detects every image and gets every
+    record, and only the mesh's rank 0 writes the files, before a barrier
+    that every rank passes once they are written."""
     device = resolve_device(device)
     stats = {} if stats is None else stats
     t_start = time.time()
@@ -225,9 +231,13 @@ def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
     if contextual is None:
         contextual = ContextualLoss(device)
     ranked = rank_proposals_suite(cfgs[0], items, percep, contextual,
-                                  device=device, stats=stats)
+                                  device=device, stats=stats, mesh=mesh,
+                                  images_axis=images_axis)
     t_rank = time.time()
+    save = save and (mesh is None or mesh.rank == 0)
     odgts = [_finish_search(p, d, c, save) for p, (d, c) in zip(preps, ranked)]
+    if mesh is not None:
+        mesh.barrier()
     t_end = time.time()
     stats.update(detect_s=t_detect - t_start, rank_s=t_rank - t_detect,
                  artefacts_s=t_end - t_rank, total_s=t_end - t_start)

@@ -234,9 +234,10 @@ def post_fit(task, cfg, name, st, ctx, data_eval, snaps, device, towers):
     return final
 
 
-def run_batched(task, pending, device, timer, towers):
+def run_batched(task, pending, device, timer, towers, mesh):
     """fit_images over a task's images (grouped by N_iters), then each
-    image's post-fit stage. pending: (name, rec, cfg, data_fit, data_eval,
+    image's post-fit stage; over a mesh only for the images this rank
+    fitted. pending: (name, rec, cfg, data_fit, data_eval,
     snapshot_best)."""
     from npp_tpu_torch.models.remapping import REMAPPING_TASK
     from npp_tpu_torch.models.segmentation import SEGMENTATION_TASK
@@ -270,7 +271,8 @@ def run_batched(task, pending, device, timer, towers):
             g_states, g_ctxs = fit_images(
                 pending[idxs[0]][2], tspec, [datas[i] for i in idxs],
                 n_iters=n_it - 1, canvas_multiple=cm, return_ctx=True,
-                milestone_hook=hook, device=device, stats=fit_stats)
+                milestone_hook=hook, device=device, stats=fit_stats,
+                mesh=mesh)
             for i, st, ctx in zip(idxs, g_states, g_ctxs):
                 states[i], ctxs[i] = st, ctx
             total_iters += len(idxs) * (n_it - 1)
@@ -281,6 +283,8 @@ def run_batched(task, pending, device, timer, towers):
     out = {}
     for i, ((name, rec, cfg, _, data_eval, _), st, ctx) in enumerate(
             zip(pending, states, ctxs)):
+        if mesh is not None and ctx['rank'] != mesh.index('images'):
+            continue
         template = st.params
         snaps = [(it, unstack_params(p, template, j))
                  for it, p, j in raw_snaps.get(i, [])]
@@ -300,12 +304,17 @@ def main(argv=None):
     from npp_tpu_torch.device import resolve_device
     from npp_tpu_torch.losses.contextual import ContextualLoss
     from npp_tpu_torch.losses.lpips import LPIPS
+    from npp_tpu_torch.parallel.mesh import gather_objects, group_mesh
+    from npp_tpu_torch.parallel.multihost import initialize, local_examples
     from npp_tpu_torch.proposal.search import run_search, run_search_suite
     from npp_tpu_torch.utils.debug import PhaseTimer
 
+    initialize(backend='gloo' if args.device == 'cpu' else None)
+    mesh = group_mesh(('images',))
     device = resolve_device(args.device)
     timer = PhaseTimer()
-    summary = {'tasks': {}, 'env': {'device': str(device)},
+    summary = {'tasks': {}, 'env': {'device': str(device), 'world':
+                                    1 if mesh is None else mesh.size},
                'options': {'preset': args.preset, 'batched': args.batched,
                            'batched_search': args.batched_search,
                            'iters_scale': args.iters_scale,
@@ -338,7 +347,7 @@ def main(argv=None):
             with timer.phase('search_batched'):
                 odgts = run_search_suite([c for _, c in pre], percep,
                                          contextual, device=device,
-                                         stats=stats)
+                                         stats=stats, mesh=mesh)
             wall = time.time() - t0
             summary['search_batched'] = {
                 'images': len(pre), 'wall_s': wall,
@@ -356,19 +365,26 @@ def main(argv=None):
         res_root = os.path.join(args.out, task, 'results')
         summary['tasks'][task] = {}
         pending = []
-        for name in names:
-            rec = {}
+        mine = set(local_examples(names))
+        recs = {}
+        for name in names:      # the searches, round-robin over any ranks
             det_dir = os.path.join(det_root, name)
-            if det_dir in searched:
-                rec.update(searched[det_dir])
-            else:
-                t0 = time.time()
-                with timer.phase(f'search/{task}'):
-                    odgt = run_search(search_config(args, in_dir, det_root,
-                                                    name), percep, contextual,
-                                      device=device)
-                rec['search_s'] = round(time.time() - t0, 2)
-                rec['top_periods'] = odgt['selected_periods'][:3]
+            recs[name] = dict(searched.get(det_dir, {}))
+            if det_dir in searched or name not in mine:
+                continue
+            t0 = time.time()
+            with timer.phase(f'search/{task}'):
+                odgt = run_search(search_config(args, in_dir, det_root, name),
+                                  percep, contextual, device=device)
+            recs[name]['search_s'] = round(time.time() - t0, 2)
+            recs[name]['top_periods'] = odgt['selected_periods'][:3]
+        if mesh is not None:
+            mesh.barrier()      # every record written before a rank reads one
+        for name in names:
+            if not args.batched and name not in mine:
+                continue
+            rec = recs[name]
+            det_dir = os.path.join(det_root, name)
             cfg = task_config(args, task, det_dir, res_root)
             if args.batched:
                 data = load_task_data(task, cfg, device)
@@ -402,12 +418,26 @@ def main(argv=None):
             summary['tasks'][task][name] = rec
             print(f'[suite] {task}/{name}: {rec}', flush=True)
         if pending:
-            recs, fit_stats = run_batched(task, pending, device, timer,
-                                          towers)
-            summary['tasks'][task].update(recs)
+            fitted, fit_stats = run_batched(task, pending, device, timer,
+                                            towers, mesh)
+            summary['tasks'][task].update(fitted)
             summary.setdefault('fit_batched', {})[task] = fit_stats
+            for name in mine:   # the searches of images fitted elsewhere
+                summary['tasks'][task].setdefault(name, recs[name])
 
     summary['phases'] = {k: round(v, 2) for k, v in timer.phases.items()}
+    if mesh is not None:
+        # every rank's records and phases, gathered; rank 0 writes
+        parts = gather_objects((summary['tasks'], summary['phases']), mesh)
+        for task in summary['tasks']:
+            merged = {}
+            for tasks_r, _ in parts:
+                for name, rec in tasks_r[task].items():
+                    merged.setdefault(name, {}).update(rec)
+            summary['tasks'][task] = {k: merged[k] for k in sorted(merged)}
+        summary['rank_phases'] = [ph for _, ph in parts]
+        if mesh.rank != 0:
+            return summary
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, 'summary.json'), 'w') as f:
         json.dump(summary, f, indent=1, default=str)
@@ -417,4 +447,9 @@ def main(argv=None):
 
 
 if __name__ == '__main__':
-    main()
+    import torch.distributed as dist
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

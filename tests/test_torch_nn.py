@@ -166,6 +166,10 @@ def _port_sources():
         for f in files:
             if f.endswith('.py'):
                 yield os.path.join(dirpath, f)
+    scripts = os.path.join(ROOT, 'scripts')
+    for f in sorted(os.listdir(scripts)):
+        if f.startswith('torch_') and f.endswith('.py'):
+            yield os.path.join(scripts, f)
     yield os.path.join(ROOT, 'chip_smoke.py')
 
 
