@@ -5,9 +5,10 @@ plain versions.
 
 Phases, in order; any failure exits non-zero:
  1. device: the card's name and power limit;
- 2. build: K1 (csrc/periodic_embed.cu, forward and backward) and K4's
-    forward and backward (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu),
-    one nvcc each, printing `-Xptxas -v`, and the host libraries with g++
+ 2. build: K1 (csrc/periodic_embed.cu, forward and backward), K4's
+    forward and backward (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu)
+    and K3 (csrc/cx_chain.cu, the CX chain both ways), one nvcc each,
+    printing `-Xptxas -v`, and the host libraries with g++
     (the segmentation's graph cut, csrc/graphcut.cpp, and the seam
     composite's Navier-Stokes inpainting, csrc/inpaint_ns.cpp), all
     started together;
@@ -33,9 +34,19 @@ Phases, in order; any failure exits non-zero:
     outputs (tests/fixtures/torch_inpaint_ns_cv2.npz, every pixel); K4 at
     LPIPS-squeeze's seven layers (the forward as one grouped launch, the
     backward at each shape) and LPIPS-squeeze robust, value and gradients,
-    card against CPU. Device times are cold (a 128 MB write evicts the L2
-    before each replayed call), with the warm reading beside them;
- 4. TF32: the gradients of the CX, LPIPS-robust and adaptive style terms,
+    card against CPU; K3 at the completion's 6 x 1,600 x 1,600 x 256, the
+    batched fit's 18 x 1,600, the 64^2 patches' 6 x 256 (remapping and
+    segmentation) both ways and the search eval's 3 x 12,288 masked
+    forward: z within 1e-4 of float64 and at most twice the plain f32
+    chain's distance, the gradients within 1e-3 of the largest float64
+    value, and on inputs with exact duplicate rows and columns (ties) and
+    an all-masked sample the plain version's gradients within 1e-3; timed
+    as the paths
+    run it (the fits' shapes with TF32, beside f32). Device times are cold
+    (a 128 MB write evicts the L2 before each replayed call), with the
+    warm reading beside them;
+ 4. TF32: the gradients of the CX (through K3 both ways), LPIPS-robust
+    and adaptive style terms,
     of one default completion step and of one remapping step under the
     default matmul_precision ('bfloat16': TF32 on) against 'float32', at
     the flagship patch scales, and of the LPIPS-robust and style terms
@@ -46,7 +57,10 @@ Phases, in order; any failure exits non-zero:
     default CompletionConfig (TF32 in the steps and the render), 21
     iterations (two blocks of 10 steps, evals at 10 and 20, the final
     render, composite and val_lpips), with every launch count set to 0
-    just before and read just after;
+    just before and read just after (K3 both ways on every fit of phases
+    5-9 and 11-13: at 6 x 1,600 x 1,600 x 256 on the completion's 160^2
+    patches, 18 x 1,600 batched, 6 x 256 on the 64^2 patches of 7 and 12;
+    K3's forward in the evals of 10 and 14);
  6. bf16-table path: the same fit with embed_table='bfloat16', 11
     iterations (one block, one eval), counted the same way;
  7. remapping path: `run_remapping` on the synthetic remapping example
@@ -123,11 +137,12 @@ Phases, in order; any failure exits non-zero:
     --nproc-per-node=<card count> scripts/torch_run_suite.py --batched
     --batched-search on phase 15's three examples, whose summary.json
     must give phase 15's records' keys and top-3. Per rank: the wall,
-    the steady ms/step, the peak memory and K1's, K2's and K4's launches,
+    the steady ms/step, the peak memory and K1's to K4's launches,
     each count set to 0 just before and read just after;
 18. one JSON line of kernels (with the search's, the remapping's, the
     warp's, the segmentation's and the batched paths' shapes and
-    launches, and the multi-card ranks' launches by kernel), the paths'
+    launches, the multi-card ranks' launches by kernel, K3's launches by
+    path), the paths'
     walls and metrics, the nvidia-smi line, and the final
     {"ok": true, "device": {...}} line.
 """
@@ -279,7 +294,8 @@ def phase_device():
     return name, smi
 
 
-CUDA_SOURCES = ('periodic_embed', 'robust_rho_fwd', 'robust_rho_bwd')
+CUDA_SOURCES = ('periodic_embed', 'robust_rho_fwd', 'robust_rho_bwd',
+                'cx_chain')
 HOST_SOURCES = ('graphcut', 'inpaint_ns')
 
 
@@ -843,6 +859,7 @@ def check_tf32_gradients():
     import torch
     from npp_tpu_torch.config import CompletionConfig, replace
     from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.kernels import launch_counts
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.sampler import SOURCE_SAME, sample_patches
     from npp_tpu_torch.models.trainer import build_loss_fn, init_fit_state
@@ -886,6 +903,7 @@ def check_tf32_gradients():
     loss_fn = build_loss_fn(cfg, comps.percep, comps.contextual, p, s,
                             inject=(pix, batch))
     grads = {}
+    k3_before = launch_counts().get(k3_name('bwd', *K3_FIT), 0)
     for prec in (cfg.matmul_precision, 'float32'):
         with matmul_precision(prec):
             for name, term in terms.items():
@@ -912,6 +930,8 @@ def check_tf32_gradients():
                 normalize=True))
             grads.setdefault('lpips_robust_bf16_towers', []).append(
                 torch.autograd.grad(term, pred)[0])
+    if launch_counts().get(k3_name('bwd', *K3_FIT), 0) < k3_before + 2:
+        fail('TF32 gradients: the CX term did not go through K3 both ways')
     res = {name: cosine(*g) for name, g in grads.items()}
     res.update(tf32_style_cosines())
     log(f'TF32 on ({cfg.matmul_precision!r}) against off (\'float32\'), '
@@ -1090,7 +1110,8 @@ def drive_remap():
     wrong = {k: launches.get(k, 0) for k, v in want.items()
              if launches.get(k, 0) != v}
     missing = [k for k in ('periodic_embed', 'bias_snake_fwd',
-                           'bias_snake_bwd') if launches.get(k, 0) <= 0]
+                           'bias_snake_bwd', *k3_names(K3_PATCH64))
+               if launches.get(k, 0) <= 0]
     if wrong or missing:
         fail(f'remapping path: launch counts {wrong}, expected {want}; '
              f'never launched: {missing}')
@@ -1332,8 +1353,12 @@ def drive_search():
             want[f'bias_snake_{k}[{b}x{r}x{w}]'] = per_step * n
     wrong = {k: launches.get(k, 0) for k, v in want.items()
              if launches.get(k, 0) != v}
-    if wrong:
-        fail(f'search: launch counts {wrong}, expected {want}')
+    # the eval's CX: K3's forward only (no gradient), at the search shape
+    cx = k3_name('fwd', *K3_SEARCH)
+    if wrong or launches.get(cx, 0) <= 0 or launches.get('cx_chain_bwd', 0):
+        fail(f'search: launch counts {wrong}, expected {want}; K3 '
+             f"{ {k: v for k, v in launches.items() if 'cx' in k} }, "
+             f'expected {cx} and no backward')
     return odgt, stats, launches, peak
 
 
@@ -1371,7 +1396,7 @@ def drive_heldout():
     _, history, _, final = drive(
         'held-out path', ['periodic_embed', 'bias_snake_fwd',
                           'bias_snake_bwd', 'robust_rho_fwd',
-                          'robust_rho_bwd'],
+                          'robust_rho_bwd', *sorted(k3_names(K3_FIT))],
         N_iters=11, every=5, comp_heldout=2, comp_snapshot='best')
     log(f"held-out path: heldout_psnr {final.get('heldout_psnr')} at "
         f"snapshot_iter {final['snapshot_iter']}")
@@ -1391,7 +1416,8 @@ def drive_warp():
     launches, history, _, final = drive(
         'warp path', ['periodic_embed', 'periodic_embed_bwd',
                       'bias_snake_fwd', 'bias_snake_bwd', 'robust_rho_fwd',
-                      'robust_rho_bwd'], N_iters=11, warp_field=True)
+                      'robust_rho_bwd', *sorted(k3_names(K3_FIT))], N_iters=11,
+        warp_field=True)
     steps = 10
     if launches['periodic_embed'] < steps or \
             launches['periodic_embed_bwd'] != steps:
@@ -1567,7 +1593,7 @@ def drive_segment():
         fail(f'segmentation path: refinements at {sorted(results)}, init '
              f'fraction {init.mean()}')
     need = [*sorted(seg_names()), 'robust_rho_fwd[8192x3]',
-            'robust_rho_bwd[8192x3]']
+            'robust_rho_bwd[8192x3]', *sorted(k3_names(K3_PATCH64))]
     missing = [k for k in need if launches.get(k, 0) <= 0]
     if missing:
         fail(f'segmentation path: kernels never launched: {missing}')
@@ -1969,9 +1995,12 @@ def drive_batched():
              if launches.get(k, 0) != v}
     key = 'x'.join(map(str, BATCH_K2))
     if wrong or launches.get(f'bias_snake_fwd[{key}]', 0) <= 0 or \
-            launches.get('periodic_embed', 0) != 0 or res['table'] is not None:
+            launches.get('periodic_embed', 0) != 0 or \
+            res['table'] is not None or \
+            any(launches.get(k, 0) <= 0 for k in k3_names(K3_BATCHED)):
         fail(f'batched path: launch counts {wrong or dict(launches)}; '
-             f'expected {want}, K2 at {key} and no table')
+             f'expected {want}, K2 at {key}, K3 at {K3_BATCHED} and no '
+             'table')
     out['batched'] = dict(res, lpips_group_launches=launches.get(
         batch_lpips_group_name(), 0))
     all_launches = dict(launches)
@@ -2104,8 +2133,9 @@ def drive_suite_search():
             want[f'bias_snake_{k}[{bb}x{r}x{w}]'] = per_step * n
     wrong = {k: launches.get(k, 0) for k, v in want.items()
              if launches.get(k, 0) != v}
-    if wrong:
-        fail(f'suite search: launch counts {wrong}, expected {want}')
+    if wrong or launches.get('cx_chain_fwd', 0) <= 0:
+        fail(f'suite search: launch counts {wrong}, expected {want} and '
+             f"K3's forward in the eval")
     seq_walls, report = _suite_against_sequential(
         cfgs, datas, odgts, 'suite search', SUITE_TF32_BAR)
     log(f'suite search: 3 images in {wall:.2f} s (rank '
@@ -2495,7 +2525,8 @@ def drive_seam():
         launches, history, _, final = drive(
             'seam path', ['periodic_embed', 'bias_snake_fwd',
                           'bias_snake_bwd', 'robust_rho_fwd',
-                          'robust_rho_bwd'], N_iters=11, comp_seam='residual')
+                          'robust_rho_bwd', *sorted(k3_names(K3_FIT))],
+            N_iters=11, comp_seam='residual')
     finally:
         completion.inpaint_ns = inpaint
     if not np.array_equal(final['pred_rgb_img_comp'],
@@ -2514,11 +2545,263 @@ def drive_seam():
 
 
 
+# ---- K3, the CX similarity chain (csrc/cx_chain.cu): its shapes on the
+# paths, (N, P = Q, C) at VGG19 relu3_4, where a patch of s pixels gives
+# (s // 4)^2 positions: the completion's six 160^2 patches (2 fake x K=3
+# real), the batched fit's three images of six, the remapping's and the
+# segmentation's six 64^2 patches, and the search's eval, three candidates
+# a call at the 384x512 crop (forward only, f32, masked in cx_bbox when
+# cx_mask_pad is on)
+K3_FIT = (6, 1600, 256)
+K3_BATCHED = (18, 1600, 256)
+K3_PATCH64 = (6, 256, 256)
+K3_SEARCH = (3, 12288, 256)
+K3_SRC = 'npp_tpu_torch/csrc/cx_chain.cu'
+K3_REPLACES = ('npp_tpu/losses/contextual.py:21-130 (cosine distance, '
+               'relative distance, exp / row normalisation, masked column '
+               'max{}; XLA-fused, no pl.pallas_call in the repo)')
+TF32_PEAK = 495e12      # H100 SXM TF32 tensor cores, dense, FLOP/s
+K3_F64_BAR = 1e-4       # K3's z against float64, relative to its largest
+K3_GRAD_BAR = 1e-3      # K3's gradients, relative to the largest
+K3_TF32_BAR = 2e-3      # K3 against the plain chain, both with TF32 (each
+                        # about 1.5e-3 from float64, rounding apart)
+
+
+def k3_name(kind, n, p, c):
+    return f'cx_chain_{kind}[{n}x{p}x{p}x{c}]'
+
+
+def k3_names(shape, kinds=('fwd', 'bwd')):
+    return {k3_name(kind, *shape) for kind in kinds}
+
+
+def k3_rows(gen, n, p, c, dup=0):
+    """Normalised rows as the fits make them, on the card: relu features
+    y, x near y, shifted by y's mean (losses/contextual.py::
+    normalized_features). dup: the `dup` positions from p // 2 repeat the
+    first `dup` exactly, in x and in y (equal rows and columns: tied
+    maxima and minima, as the fits' cx_pred * real_mask makes them)."""
+    import torch
+    from npp_tpu_torch.losses.contextual import normalized_features
+    y = torch.relu(torch.randn(n, p, 1, c, generator=gen))
+    x = y + 0.5 * torch.randn(n, p, 1, c, generator=gen)
+    for t in (x, y):
+        t[:, p // 2:p // 2 + dup] = t[:, :dup]
+    return normalized_features(x.cuda(), y.cuda())
+
+
+def k3_bound_ms(n, p, c, kind, tf32, masked=False):
+    """The forward reads xn and yn (and the mask) and writes z: one product
+    of 2 N P^2 C operations; the backward reads xn, yn and g and writes
+    dxn and dyn: two products. Against the TF32 or the f32 peak."""
+    if kind == 'fwd':
+        n_bytes = (2 * n * p * c + n * p * (2 if masked else 1)) * 4
+        ops = 2 * n * p * p * c
+    else:
+        n_bytes, ops = (4 * n * p * c + n * p) * 4, 4 * n * p * p * c
+    t_bytes = n_bytes / MEM_BW
+    t_ops = ops / (TF32_PEAK if tf32 else F32_PEAK)
+    return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def k3_run(fn, xn, yn, fv, g, dtype):
+    """z and, with g, its gradients in xn and yn, of fn (the kernel or the
+    plain chain) in dtype."""
+    import torch
+    a = xn.to(dtype).detach().requires_grad_(g is not None)
+    b = yn.to(dtype).detach().requires_grad_(g is not None)
+    z = fn(a, b, 0.5, None if fv is None else fv.to(dtype))
+    out = (z.detach(),)
+    if g is not None:
+        out += torch.autograd.grad(z, (a, b), g.to(dtype))
+    torch.cuda.synchronize()
+    return out
+
+
+def k3_rel(got, want):
+    return float((got.double() - want.double()).abs().max() /
+                 want.double().abs().max().clamp_min(1e-30))
+
+
+def k3_tie_errs(gen, n, p, c):
+    """K3's z and gradients against the plain version's on inputs where a
+    fifth of the positions repeat others exactly (exact ties in the max
+    and the min), then with a mask that leaves sample 1 all masked, in f32
+    and with TF32: {'f32': x, 'tf32': x}, each the largest difference
+    relative to the plain version's largest value. (Zeroed feature rows
+    would put s at the clamp's edge 1, where any two f32 products may fall
+    on either side and the gradient jumps.)"""
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.kernels import cx_chain as K
+    import torch
+    xn, yn = k3_rows(gen, n, p, c, dup=p // 5)
+    fv = (torch.rand(n, p, generator=gen) > 0.3).float().cuda()
+    fv[1] = 0.0
+    g = (torch.rand(n, p, generator=gen) + 0.5).cuda()
+    worst = {}
+    for tag, prec in (('f32', 'float32'), ('tf32', 'bfloat16')):
+        with matmul_precision(prec):
+            for mask in (None, fv):
+                got = k3_run(K.cx_colmax, xn, yn, mask, g, torch.float32)
+                want = k3_run(K.cx_colmax_plain, xn, yn, mask, g,
+                              torch.float32)
+                worst[tag] = max([worst.get(tag, 0.0)] +
+                                 [k3_rel(a, b) for a, b in zip(got, want)])
+    return worst
+
+
+def k3_peak_mib(fn):
+    """MiB that one call of fn allocates at its peak above what was
+    allocated before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def check_k3(gen, shape, backward, masked=False, iters=20):
+    """K3 at one shape (N, P, C): z judged against the plain chain in f32
+    and in float64 (judge(), and K3_F64_BAR against float64); with
+    `backward` (a fit's shape), its gradients in xn and yn within
+    K3_GRAD_BAR of the largest float64 value, on the tie and all-masked
+    inputs of k3_tie_errs within K3_GRAD_BAR of the plain version's, and
+    with TF32, as the fits run it, z and the gradients (the tie and
+    all-masked inputs too) within K3_TF32_BAR of the plain chain's, also
+    with TF32. Timed (device cold and warm, eager, the plain chain) as its
+    path runs it: a fit's shape with TF32 (and in f32 beside it; and with
+    one block a row against splits_for's), the search's in f32; the
+    backward with both gradients, as its bound counts, and with dxn alone
+    as the fits run it, against the plain chain's backward alone (its
+    forward and backward less its forward). The forward's peak memory, the
+    kernel's and the plain chain's. Entries named like the launch counts."""
+    import torch
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.kernels import cx_chain as K
+    n, p, c = shape
+    xn, yn = k3_rows(gen, n, p, c)
+    fv = (torch.rand(n, p, generator=gen) > 0.2).float().cuda() \
+        if masked else None
+    g = (torch.rand(n, p, generator=gen) + 0.5).cuda() if backward else None
+    runs = [k3_run(fn, xn, yn, fv, g, dt) for fn, dt in (
+        (K.cx_colmax, torch.float32), (K.cx_colmax_plain, torch.float32),
+        (K.cx_colmax_plain, torch.float64))]
+    err = {'fwd': judge([(runs[0][0], runs[1][0], runs[2][0])])}
+    err['fwd']['passed'] &= err['fwd']['rel_err_vs_f64'] <= K3_F64_BAR
+    if backward:
+        e = judge(list(zip(*runs))[1:], floor=K3_GRAD_BAR)
+        ties = k3_tie_errs(gen, n, p, c)
+        e['tie_mask_err_vs_plain'] = ties['f32']
+        e['passed'] = e['rel_err_vs_f64'] <= K3_GRAD_BAR and \
+            ties['f32'] <= K3_GRAD_BAR
+        err['bwd'] = e
+        with matmul_precision('bfloat16'):
+            tf = [k3_run(fn, xn, yn, fv, g, torch.float32)
+                  for fn in (K.cx_colmax, K.cx_colmax_plain)]
+        # z, dxn, dyn: the kernel against the plain chain, and each against
+        # float64, all with TF32
+        diff = [k3_rel(a, b) for a, b in zip(*tf)]
+        k64, p64 = ([k3_rel(a, b) for a, b in zip(t, runs[2])] for t in tf)
+        for kind, at in (('fwd', slice(0, 1)), ('bwd', slice(1, 3))):
+            err[kind].update(tf32_err_vs_plain=max(diff[at]),
+                             tf32_rel_err_vs_f64=max(k64[at]),
+                             tf32_plain_rel_err_vs_f64=max(p64[at]))
+            err[kind]['passed'] &= max(diff[at]) <= K3_TF32_BAR
+        err['bwd']['tf32_tie_mask_err_vs_plain'] = ties['tf32']
+        err['bwd']['passed'] &= ties['tf32'] <= K3_TF32_BAR
+        del tf
+    del runs
+    tf32 = backward   # a fit's shape runs with TF32, the search's eval in f32
+
+    def fns(kind, prec, splits=None):
+        """(kernel, plain) callables of one direction at one precision;
+        the backward's kernel takes need_dy=False for dxn alone, and its
+        plain callable is the plain chain's forward and backward (its
+        backward's nodes run on the forward's stream, so a backward alone
+        cannot be captured in a graph apart from its forward)."""
+        if kind == 'fwd':
+            return ((lambda: K.cx_colmax(xn, yn, 0.5, fv)) if splits is None
+                    else (lambda: K.cx_fwd_launch(xn, yn, fv, 0.5, prec,
+                                                  splits)),
+                    lambda: K.cx_colmax_plain(xn, yn, 0.5, fv))
+        z, saved = K.cx_fwd_launch(xn, yn, fv, 0.5, prec, splits)
+
+        def plain():
+            a, b = (t.detach().requires_grad_() for t in (xn, yn))
+            return torch.autograd.grad(K.cx_colmax_plain(a, b, 0.5, fv),
+                                       (a, b), g)
+        return (lambda **kw: K.cx_bwd_launch(g, xn, yn, fv, saved, z, 0.5,
+                                             prec, **kw), plain)
+
+    def plain_ms(kind, prec):
+        """The plain chain's device ms in one direction, and for the
+        backward its forward and backward; the backward alone is the two
+        less the forward."""
+        fwd = time_ms(fns('fwd', prec)[1], iters=iters)
+        if kind == 'fwd':
+            return fwd, fwd
+        both = time_ms(fns('bwd', prec)[1], iters=iters)
+        return both - fwd, both
+
+    out = []
+    for kind in ('fwd', 'bwd') if backward else ('fwd',):
+        extra = {}
+        with matmul_precision('bfloat16' if tf32 else 'float32'):
+            prec = K.PREC_TF32 if tf32 else K.PREC_F32
+            kernel, plain = fns(kind, prec)
+            times = device_times(kernel, iters=iters)
+            e_ms = eager_ms(kernel, iters=iters)
+            p_ms, p_both = plain_ms(kind, prec)
+            if kind == 'bwd':
+                extra.update(plain_fwd_bwd_ms=p_both, dx_only_ms=time_ms(
+                    lambda: kernel(need_dy=False), iters=iters))
+            if backward:
+                extra['splits1_ms'] = time_ms(fns(kind, prec, splits=1)[0],
+                                              iters=iters)
+            if kind == 'fwd':
+                extra.update(peak_mib=k3_peak_mib(kernel),
+                             plain_peak_mib=k3_peak_mib(plain))
+            del kernel, plain
+        if tf32:
+            with matmul_precision('float32'):
+                kernel, _ = fns(kind, K.PREC_F32)
+                extra.update(ms_f32=time_ms(kernel, iters=iters),
+                             plain_ms_f32=plain_ms(kind, K.PREC_F32)[0],
+                             bound_ms_f32=k3_bound_ms(n, p, c, kind, False,
+                                                      masked)[0])
+                del kernel
+        b_ms, b_by = k3_bound_ms(n, p, c, kind, tf32, masked)
+        out.append(dict(
+            name=k3_name(kind, n, p, c), route='cuda', source=K3_SRC,
+            replaces=K3_REPLACES.format(', its gradient' if kind == 'bwd'
+                                        else ''),
+            shape=[n, p, p, c], masked=masked,
+            precision='tf32' if tf32 else 'f32', **err[kind], **times,
+            eager_ms=e_ms, plain_ms=p_ms, bound_ms=b_ms, bound_us=1e3 * b_ms,
+            bound_by=b_by, library_ms=None, **extra))
+    return out
+
+
+def check_k3_all(gen):
+    """K3 at the completion's, the batched fit's, the 64^2 patches' (the
+    remapping and the segmentation) and the search eval's shapes; the
+    search's with its mask, forward only. Ten timed calls a replay (three
+    at the search's shape) keep the phase's time down."""
+    return check_k3(gen, K3_FIT, True, iters=10) + \
+        check_k3(gen, K3_BATCHED, True, iters=10) + \
+        check_k3(gen, K3_PATCH64, True, iters=10) + \
+        check_k3(gen, K3_SEARCH, False, masked=True, iters=3)
+
+
 # ---- the multi-card slice: the mesh over torch.distributed ranks
 
 MC_PATHS = ('nccl', 'gloo_two_ranks_one_card')
 K_BASE = ('periodic_embed_batched', 'bias_snake_fwd', 'bias_snake_bwd',
-          'robust_rho_fwd', 'robust_rho_bwd')
+          'robust_rho_fwd', 'robust_rho_bwd', 'cx_chain_fwd', 'cx_chain_bwd')
 MC_DEADLINE = 400.0
 
 
@@ -2727,7 +3010,7 @@ def drive_multicard(batched_params, batched_ms, suite, entry):
             f'diff from the unsharded call {rel:.3e}, same top-3 {same3}')
         if rel > 1e-4 or not same3:
             problems.append(f'ranking: {sharded} against unsharded {plain}')
-        for k in K_BASE[1:]:
+        for k in K_BASE[1:-1]:   # the ranking's eval runs no CX gradient
             if rk['launches'].get(k, 0) <= 0 or su['launches'].get(k, 0) <= 0:
                 problems.append(f'ranking/suite: rank {r["rank"]} launched '
                                 f'no {k}')
@@ -2776,7 +3059,8 @@ def main():
         kernels = check_k1(gen) + check_k1_bwd(gen) + check_k2(gen) + \
             check_k4(gen) + check_k4_wide(gen) + check_k1_seg(gen) + \
             k2_entries(gen, SEG_K2, SEG_K2_NAMES) + check_k1_batched(gen) + \
-            check_batch_kernels(gen) + check_k4_squeeze(gen)
+            check_batch_kernels(gen) + check_k4_squeeze(gen) + \
+            check_k3_all(gen)
         for k in kernels:
             err = (f"vs float64 kernel {k['rel_err_vs_f64']:.3e}, plain "
                    f"{k['plain_rel_err_vs_f64']:.3e} (tol {k['tol']:.3e})"
@@ -2787,6 +3071,16 @@ def main():
                 f"{err}; {k['ms']:.4f} ms (eager {k['eager_ms']:.4f}) vs "
                 f"plain {k['plain_ms']:.4f} ms, bound {k['bound_us']:.1f} us "
                 f"({k['bound_by']})")
+            if k['name'].startswith('cx_chain'):
+                log(f"  K3 {k['precision']}: warm {k['warm_ms']:.4f} ms; "
+                    + ', '.join(f'{x} {k[x]:.4g}' for x in (
+                        'tie_mask_err_vs_plain', 'tf32_err_vs_plain',
+                        'tf32_rel_err_vs_f64', 'tf32_plain_rel_err_vs_f64',
+                        'tf32_tie_mask_err_vs_plain', 'plain_fwd_bwd_ms',
+                        'dx_only_ms',
+                        'splits1_ms', 'ms_f32', 'plain_ms_f32',
+                        'bound_ms_f32', 'peak_mib', 'plain_peak_mib')
+                        if x in k))
             for seg in k.get('segments', ()):
                 log(f"  alone at {seg['shape']}: {seg['ms']:.4f} ms (eager "
                     f"{seg['eager_ms']:.4f}), bound "
@@ -2805,11 +3099,13 @@ def main():
         squeeze_card_vs_cpu = check_lpips_squeeze()
     cosines = check_tf32_gradients()
     bf16_name = 'periodic_embed_bf16'
-    on_search = set(search_names())
-    on_remap = {k['name'] for k in kernels if '[6x' in k['name']}
+    on_search = set(search_names()) | k3_names(K3_SEARCH, ('fwd',))
+    on_remap = {k['name'] for k in kernels if '[6x' in k['name'] and
+                k['name'].startswith('robust_rho')} | k3_names(K3_PATCH64)
     on_warp = {'periodic_embed_bwd'}
     on_seg = seg_names()
-    on_batch, on_suite = batch_names(), suite_names()
+    on_batch = batch_names() | k3_names(K3_BATCHED)
+    on_suite = suite_names()
     on_squeeze = set(squeeze_names())
     log("main path and bf16-table path: matmul_precision='bfloat16' (the "
         "default), TF32 on in the steps and the render")
@@ -2821,7 +3117,8 @@ def main():
         N_iters=21)
     bf16_launches, bf16_history, _, _ = drive(
         'bf16-table path', [bf16_name, 'bias_snake_fwd', 'bias_snake_bwd',
-                            'robust_rho_fwd', 'robust_rho_bwd'],
+                            'robust_rho_fwd', 'robust_rho_bwd',
+                            *sorted(k3_names(K3_FIT))],
         N_iters=11, embed_table='bfloat16')
     log("remapping, held-out and warp paths: the default RemappingConfig / "
         "CompletionConfig widths, TF32 in the steps and the render")
@@ -2841,7 +3138,8 @@ def main():
     _, chained_history, _, chained_final = drive(
         'search-chained path', ['periodic_embed', 'bias_snake_fwd',
                                 'bias_snake_bwd', 'robust_rho_fwd',
-                                'robust_rho_bwd'],
+                                'robust_rho_bwd', 'cx_chain_fwd',
+                                'cx_chain_bwd'],
         data=chained, N_iters=11)
     log("segmentation path: the default SegmentationConfig widths, TF32 in "
         "the steps and the render, the refinement's spatial LPIPS-alex in "
@@ -2877,6 +3175,16 @@ def main():
                          remap_launches if k['name'] in on_remap else
                          warp_launches if k['name'] in on_warp else
                          main_launches).get(k['name'], 0)
+    for k in kernels:
+        if k['name'].startswith('cx_chain'):
+            k['path_launches'] = {
+                label: counts.get(k['name'], 0) for label, counts in (
+                    ('completion', main_launches),
+                    ('bf16_table', bf16_launches),
+                    ('remapping', remap_launches), ('warp', warp_launches),
+                    ('search', search_launches),
+                    ('segmentation', seg_launches),
+                    ('batched', batch_launches), ('suite', suite_launches))}
     for k in kernels:
         base = k['name'].split('[')[0]
         k['multicard_launches'] = {

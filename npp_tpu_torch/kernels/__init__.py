@@ -3,13 +3,13 @@
 Every wrapper adds one to its entry in its module's LAUNCHES where it
 launches its kernel, and nowhere else, so a run can show that it went
 through the kernels. An entry names the kernel, or the kernel and the shape
-it ran at ('robust_rho_bwd[153600x64]').
+it ran at ('robust_rho_bwd[153600x64]', 'cx_chain_fwd[6x1600x1600x256]').
 """
 from typing import Dict
 
-from . import periodic_embed, robust_rho, snake
+from . import cx_chain, periodic_embed, robust_rho, snake
 
-_MODULES = (periodic_embed, snake, robust_rho)
+_MODULES = (periodic_embed, snake, cx_chain, robust_rho)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -10,6 +10,7 @@ the segmentation's graph cut) is compiled the same way by `g++`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -99,6 +100,13 @@ def triton_setup():
     except ImportError:
         from triton.language.extra.cuda import libdevice   # Triton 3.0, 3.1
     return triton, tl, libdevice
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of card `index` (a launch sizes its grid by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_cuda(status: int, what: str) -> None:

@@ -37,7 +37,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from .build import check_cuda, load_library
+from .build import check_cuda, load_library, sm_count
 
 # launches by kernel and shape, keyed 'robust_rho_fwd[MxC]',
 # 'robust_rho_fwd_group[MxC,MxC,...]' or 'robust_rho_bwd[MxC]'
@@ -171,7 +171,7 @@ def rho_fwd_group_launch(segments):
                           buf[m:].data_ptr() if n_part else None)
         outs.append(r)
     status = _fwd_fn()(
-        arr, n, _sm_count(dev.index),
+        arr, n, sm_count(dev.index),
         torch._C._cuda_getCurrentRawStream(dev.index))
     check_cuda(status, 'robust_rho_fwd')
     LAUNCHES[_fwd_key(tuple(s[0].shape for s in segments))] += 1
@@ -201,17 +201,12 @@ def bwd_max_channels(c: int) -> int:
     return 1024 if c % 4 == 0 else 256
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def rho_bwd_launch(g, x, alpha, scale, w):
     """(dx, dalpha, dscale) of rho_rows on the card; csrc/robust_rho_bwd.cu."""
     m, c = x.shape
     g = g.contiguous()
     dev = x.device
-    sms = _sm_count(dev.index)
+    sms = sm_count(dev.index)
     dx = torch.empty_like(x)
     # dalpha, dscale, then the row path's (2, 8 * SMs, C) partial sums (the
     # wide path needs none)

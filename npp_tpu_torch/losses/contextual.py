@@ -5,8 +5,12 @@ externel_lib/contextual_loss/functional.py:9-63,127-186 and
 modules/contextual.py:9-68): the cosine path (the one the fits use) and
 the 'l1' and 'l2' distances, with npp_tpu's spatial mask
 (the search's cx_mask_pad) and a per-sample form (one value per sample,
-the search's eval of each candidate). Plain PyTorch; the similarity chain
-is the K3 kernel of a later slice (ROADMAP.md).
+the search's eval of each candidate). The cosine path is the mean shift
+and normalisation here, then the similarity chain up to the per-target
+column max in `kernels/cx_chain.py::cx_colmax` (K3, csrc/cx_chain.cu, on
+the card; its plain version on the CPU), then the mean and log here.
+The 'l1' and 'l2' forms, which no entry point reaches, keep the plain
+chain on every device (ROADMAP.md lists them as K3's remaining forms).
 """
 from __future__ import annotations
 
@@ -15,48 +19,55 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..kernels.cx_chain import (colmax_of_distance, compute_cx,  # noqa: F401
+                                compute_relative_distance, cx_colmax)
 from ..nn.features import (VGG19_BLOCKS, VGG19_CX_TAP, VGGFeatures,
                            imagenet_normalize, vgg_conv_shapes)
 from ..nn.pretrained import load_tower_params
 
 
-def compute_cosine_distance(x: torch.Tensor, y: torch.Tensor,
-                            feat_valid: Optional[torch.Tensor] = None,
-                            per_sample: bool = False,
-                            groups: Optional[int] = None) -> torch.Tensor:
-    """x, y: (N, H, W, C) -> dist (N, HW_x, HW_y)
+def normalized_features(x: torch.Tensor, y: torch.Tensor,
+                        feat_valid: Optional[torch.Tensor] = None,
+                        per_sample: bool = False,
+                        groups: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x, y: (N, H, W, C) -> xn, yn (N, HW, C): both shifted by the
+    channel mean of y and L2-normalised per position
     (reference: functional.py:127-163). feat_valid: optional (N, H, W)
     mask; the mean-shift statistic then uses valid positions only. The
     statistic is over the batch and space, or over each sample's space
     with per_sample (each sample then as if alone), or with `groups` over
     each of that many equal groups of samples (the multi-image fit: each
     image's batch as if alone)."""
+    n, h, w, c = y.shape
     if groups is not None:
-        n, h, w, c = y.shape
         y_mu = torch.mean(y.reshape(groups, -1, h, w, c), dim=(1, 2, 3),
                           keepdim=True)
         y_mu = y_mu.expand(groups, n // groups, 1, 1, c).reshape(n, 1, 1, c)
-        return _cosine_from_mean(x, y, y_mu)
-    dims = (1, 2) if per_sample else (0, 1, 2)
-    if feat_valid is not None:
-        v = feat_valid[..., None].to(y.dtype)
-        y_mu = (torch.sum(y * v, dim=dims, keepdim=True)
-                / torch.clamp(torch.sum(v, dim=dims, keepdim=True), min=1.0))
     else:
-        y_mu = torch.mean(y, dim=dims, keepdim=True)
-    return _cosine_from_mean(x, y, y_mu)
-
-
-def _cosine_from_mean(x: torch.Tensor, y: torch.Tensor,
-                      y_mu: torch.Tensor) -> torch.Tensor:
+        dims = (1, 2) if per_sample else (0, 1, 2)
+        if feat_valid is not None:
+            v = feat_valid[..., None].to(y.dtype)
+            y_mu = (torch.sum(y * v, dim=dims, keepdim=True)
+                    / torch.clamp(torch.sum(v, dim=dims, keepdim=True),
+                                  min=1.0))
+        else:
+            y_mu = torch.mean(y, dim=dims, keepdim=True)
     xc = x - y_mu
     yc = y - y_mu
     xn = xc / (torch.linalg.vector_norm(xc, dim=-1, keepdim=True) + 1e-12)
     yn = yc / (torch.linalg.vector_norm(yc, dim=-1, keepdim=True) + 1e-12)
-    n, h, w, c = x.shape
-    sim = torch.bmm(xn.reshape(n, h * w, c),
-                    yn.reshape(n, h * w, c).transpose(1, 2))
-    return 1.0 - torch.clamp(sim, 0.0, 1.0)
+    return xn.reshape(n, -1, c), yn.reshape(n, -1, c)
+
+
+def compute_cosine_distance(x: torch.Tensor, y: torch.Tensor,
+                            feat_valid: Optional[torch.Tensor] = None,
+                            per_sample: bool = False,
+                            groups: Optional[int] = None) -> torch.Tensor:
+    """x, y: (N, H, W, C) -> dist (N, HW_x, HW_y) = 1 - clamp(xn yn^T, 0, 1)
+    of normalized_features (reference: functional.py:127-163)."""
+    xn, yn = normalized_features(x, y, feat_valid, per_sample, groups)
+    return 1.0 - torch.clamp(torch.bmm(xn, yn.transpose(1, 2)), 0.0, 1.0)
 
 
 def compute_l1_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -78,16 +89,6 @@ def compute_l2_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y_s = torch.sum(yv ** 2, dim=-1)
     ab = torch.bmm(xv, yv.transpose(1, 2))
     return torch.clamp(y_s[:, None, :] - 2 * ab + x_s[:, :, None], min=0.0)
-
-
-def compute_relative_distance(dist_raw: torch.Tensor) -> torch.Tensor:
-    dist_min = torch.amin(dist_raw, dim=2, keepdim=True)
-    return dist_raw / (dist_min + 1e-5)
-
-
-def compute_cx(dist_tilde: torch.Tensor, band_width: float) -> torch.Tensor:
-    w = torch.exp((1.0 - dist_tilde) / band_width)
-    return w / torch.sum(w, dim=2, keepdim=True)
 
 
 def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
@@ -112,26 +113,24 @@ def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
         raise ValueError('per_sample takes no weight or valid')
     if groups is not None and feat_valid is not None:
         raise ValueError('groups take no feat_valid')
+    fv = None if feat_valid is None else \
+        feat_valid.reshape(feat_valid.shape[0], -1)           # (N, P)
     if loss_type == 'cosine':
-        dist_raw = compute_cosine_distance(x, y, feat_valid, per_sample,
-                                           groups)
+        xn, yn = normalized_features(x, y, feat_valid, per_sample, groups)
+        cx = cx_colmax(xn, yn, band_width, fv)                # (N, Q)
     elif loss_type in ('l1', 'l2'):
+        # no entry point reaches these forms: the plain chain on every
+        # device, K3's remaining forms (ROADMAP.md)
         dist_raw = (compute_l1_distance if loss_type == 'l1'
                     else compute_l2_distance)(x, y)
+        cx = colmax_of_distance(dist_raw, band_width, fv)
     else:
         raise ValueError(f'unsupported loss_type {loss_type!r}')
-    if feat_valid is not None:
-        fv = feat_valid.reshape(feat_valid.shape[0], -1)  # (N, P)
-        fvd = fv.to(dist_raw.dtype)
-        dist_raw = torch.where(fv[:, None, :] > 0, dist_raw,
-                               torch.full_like(dist_raw, 1e9))
-    dist_tilde = compute_relative_distance(dist_raw)
-    cx = compute_cx(dist_tilde, band_width)
-    if feat_valid is not None:
-        cx = torch.amax(cx * fvd[:, :, None], dim=1)          # (N, Q)
+    if fv is not None:
+        fvd = fv.to(cx.dtype)
         cx = torch.sum(cx * fvd, dim=1) / torch.clamp(fvd.sum(1), min=1.0)
     else:
-        cx = torch.mean(torch.amax(cx, dim=1), dim=1)          # (N,)
+        cx = torch.mean(cx, dim=1)                              # (N,)
     if per_sample:
         return -torch.log(cx + 1e-5)
     g = 1 if groups is None else groups

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from npp_tpu_torch.kernels import launch_counts, periodic_embed, reset_launches
+from npp_tpu_torch.kernels import cx_chain, launch_counts, periodic_embed, \
+    reset_launches
 from npp_tpu_torch.kernels import robust_rho as rr
 from npp_tpu_torch.kernels import snake
 
@@ -303,3 +304,58 @@ def test_k4_at_main_path_shapes_on_the_card(shapes, alpha):
                                 [seg[i] for i in range(3) for seg in segs],
                                 [seg[3] for seg in segs], g)
     assert launch_counts()[key] == before + 1
+
+
+def _k3_rows(gen, n, p, c, dup=0, dev='cuda'):
+    """Normalised rows as the fits make them: relu features y, x near y,
+    the `dup` positions from p // 2 repeating the first `dup` exactly in
+    both (equal rows and columns), shifted by y's mean."""
+    y = torch.relu(torch.randn(n, p, c, generator=gen))
+    x = y + 0.5 * torch.randn(n, p, c, generator=gen)
+    for t in (x, y):
+        t[:, p // 2:p // 2 + dup] = t[:, :dup]
+    mu = y.mean((0, 1), keepdim=True)
+    xn, yn = (torch.nn.functional.normalize(t - mu, dim=-1, eps=1e-12)
+              for t in (x, y))
+    return xn.to(dev), yn.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tf32', [False, True], ids=['f32', 'tf32'])
+@pytest.mark.parametrize('case', ['ragged', 'ties', 'masked', 'splits'])
+def test_k3_forward_and_backward_match_plain_on_the_card(case, tf32):
+    """z and its gradients in xn and yn against the plain chain on the
+    same card, in the same precision: within 1e-4 of the largest value in
+    f32, 2e-3 with TF32 (the two products round differently in TF32).
+    'ties' has exact duplicate rows and columns (tied maxima and minima),
+    'masked' one sample with every position masked too, 'splits' 6 x 784
+    (25 tiles a row, five blocks sharing them)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(7)
+    n, p = {'ragged': (2, 100), 'splits': (6, 784)}.get(case, (3, 144))
+    xn, yn = _k3_rows(gen, n, p, 256,
+                      dup=40 if case in ('ties', 'masked') else 0)
+    fv = None
+    if case == 'masked':
+        fv = (torch.rand(n, p, generator=gen) > 0.3).float().to(dev)
+        fv[1] = 0.0
+    g = (torch.rand(n, p, generator=gen) + 0.5).to(dev)
+    bar = 2e-3 if tf32 else 1e-4
+    outs = []
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        before = launch_counts().get('cx_chain_bwd', 0)
+        for fn in (cx_chain.cx_colmax, cx_chain.cx_colmax_plain):
+            a, b = (t.clone().requires_grad_() for t in (xn, yn))
+            z = fn(a, b, 0.5, fv)
+            (z * g).sum().backward()
+            outs.append((z.detach(), a.grad, b.grad))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    assert launch_counts()['cx_chain_bwd'] == before + 1
+    for got, want in zip(*outs):
+        assert torch.isfinite(got).all()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= bar, err
