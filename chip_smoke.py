@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
  2. build: K1 (csrc/periodic_embed.cu, forward and backward), K4's
     forward and backward (csrc/robust_rho_fwd.cu, csrc/robust_rho_bwd.cu)
     and K3 (csrc/cx_chain.cu, the CX chain both ways), one nvcc each,
-    printing `-Xptxas -v`, and the host libraries with g++
+    printing `-Xptxas -v`, K3's PTX (its wgmma.mma_async count, which must
+    not be 0), and the host libraries with g++
     (the segmentation's graph cut, csrc/graphcut.cpp, and the seam
     composite's Navier-Stokes inpainting, csrc/inpaint_ns.cpp), all
     started together;
@@ -41,8 +42,11 @@ Phases, in order; any failure exits non-zero:
     chain's distance, the gradients within 1e-3 of the largest float64
     value, and on inputs with exact duplicate rows and columns (ties) and
     an all-masked sample the plain version's gradients within 1e-3; timed
-    as the paths
-    run it (the fits' shapes with TF32, beside f32). Device times are cold
+    as the paths run it (the fits' shapes with TF32, beside f32), with
+    each pass's device time, its scratch bytes and peak memory; K3's l2
+    and l1 forms at 6 x 256 and 6 x 1,600 against their plain chains and
+    float64 with the same bars, and with TF32 against the plain chain
+    (also TF32) within 2e-3. Device times are cold
     (a 128 MB write evicts the L2 before each replayed call), with the
     warm reading beside them;
  4. TF32: the gradients of the CX (through K3 both ways), LPIPS-robust
@@ -149,6 +153,7 @@ Phases, in order; any failure exits non-zero:
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -306,12 +311,17 @@ def phase_build():
     t0 = time.time()
     jobs = [lambda n=n: build_library(n, ptxas_verbose=True)
             for n in CUDA_SOURCES] + \
-        [lambda n=n: build_host_library(n) for n in HOST_SOURCES]
+        [lambda n=n: build_host_library(n) for n in HOST_SOURCES] + \
+        [k3_wgmma_count]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda job: job(), jobs))
+        wgmma = list(pool.map(lambda job: job(), jobs))[-1]
     log(f'built {", ".join(f"csrc/{n}.cu" for n in CUDA_SOURCES)} and '
         f'{", ".join(f"csrc/{n}.cpp" for n in HOST_SOURCES)} in '
-        f'{time.time() - t0:.1f} s')
+        f'{time.time() - t0:.1f} s; K3\'s PTX holds {wgmma} '
+        f'wgmma.mma_async instructions')
+    if wgmma <= 0:
+        fail("K3's TF32 products are not on wgmma.mma_async")
+    return wgmma
 
 
 def bf16_ulps(got, want, floor):
@@ -2651,6 +2661,114 @@ def k3_tie_errs(gen, n, p, c):
     return worst
 
 
+def k3_pass_ms(fn, iters=5):
+    """Device ms per call of each kernel that fn launches, by name
+    (torch.profiler; K3's names as csrc/cx_chain.cu gives them, e.g.
+    'cx_gemm_tf32', 'cx_row_stats<0>')."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, 'self_device_time_total', None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r'cx_\w+(<\d+>)?', ev.key)
+            name = m.group(0) if m else ev.key[:60]
+            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    return out
+
+
+def k3_wgmma_count():
+    """The wgmma.mma_async instructions of csrc/cx_chain.cu's PTX (nvcc
+    -ptx for sm_90a, written under the build directory)."""
+    from npp_tpu_torch.kernels.build import BUILD_DIR, CSRC_DIR, nvcc_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, 'cx_chain.ptx')
+    subprocess.run([nvcc_path(), '-arch=sm_90a', '-std=c++17', '-O3', '-ptx',
+                    '-o', out, os.path.join(CSRC_DIR, 'cx_chain.cu')],
+                   check=True, capture_output=True)
+    with open(out) as f:
+        return sum(line.count('wgmma.mma_async') for line in f)
+
+
+def k3_form_errs(gen, mode, n, p, c):
+    """K3's l2 or l1 form against its plain chain at (N, P, C): raw relu
+    features (x near y; l1 their channel sums), with the all-masked
+    sample of k3_tie_errs' mask. z and both gradients of the kernel and
+    of the plain chain against float64 in f32 (K3_F64_BAR, K3_GRAD_BAR,
+    and no worse than twice the plain chain's distance), and the kernel
+    against the plain chain with TF32 on (the TF32 bar where the plain
+    chain itself stays within it of float64: l2's distances subtract
+    products of raw rows, which TF32 rounds far more coarsely). Device
+    ms (cold; the forward also warm and eager) of both directions, kernel
+    and plain, in f32, and the forward's bound (l2: its product, as K3's;
+    l1: its bytes, as it has no product)."""
+    import torch
+    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.kernels import cx_chain as K
+    y = torch.relu(torch.randn(n, p, c, generator=gen))
+    x = y + 0.5 * torch.randn(n, p, c, generator=gen)
+    if mode == 'l1':
+        x, y = x.sum(-1), y.sum(-1)
+    x, y = x.cuda(), y.cuda()
+    fv = (torch.rand(n, p, generator=gen) > 0.3).float().cuda()
+    fv[1] = 0.0
+    g = (torch.rand(n, p, generator=gen) + 0.5).cuda()
+    kern = K.cx_colmax_l2 if mode == 'l2' else K.cx_colmax_l1
+    plain = K.PLAIN[mode]
+    out = dict(shape=[n, p, p, c], passed=True)
+    for mask in (None, fv):
+        tag = 'masked' if mask is not None else 'plain'
+        with matmul_precision('float32'):
+            runs = [k3_run(fn, x, y, mask, g, dt) for fn, dt in (
+                (kern, torch.float32), (plain, torch.float32),
+                (plain, torch.float64))]
+        k64 = [k3_rel(a, b) for a, b in zip(runs[0], runs[2])]
+        p64 = [k3_rel(a, b) for a, b in zip(runs[1], runs[2])]
+        bars = (K3_F64_BAR, K3_GRAD_BAR, K3_GRAD_BAR)
+        ok = all(e <= max(b, 2 * pe) for e, b, pe in zip(k64, bars, p64))
+        with matmul_precision('bfloat16'):
+            tf = [k3_run(fn, x, y, mask, g, torch.float32)
+                  for fn in (kern, plain)]
+        tf_diff = [k3_rel(a, b) for a, b in zip(*tf)]
+        tf_p64 = [k3_rel(a, b) for a, b in zip(tf[1], runs[2])]
+        if max(tf_p64) <= K3_TF32_BAR:
+            ok &= max(tf_diff) <= K3_TF32_BAR
+        out[tag] = dict(
+            rel_err_vs_f64=k64, plain_rel_err_vs_f64=p64,
+            tf32_err_vs_plain=tf_diff, tf32_plain_rel_err_vs_f64=tf_p64,
+            max_abs_err=float((runs[0][0] - runs[1][0]).abs().max()))
+        out['passed'] &= ok
+        del runs, tf
+    with matmul_precision('float32'):
+        kf = lambda: kern(x, y, 0.5, fv)  # noqa: E731
+        pf = lambda: plain(x, y, 0.5, fv)  # noqa: E731
+
+        def both(fn):
+            def run():
+                a, b = (t.detach().requires_grad_() for t in (x, y))
+                return torch.autograd.grad(fn(a, b, 0.5, fv), (a, b), g)
+            return run
+        out.update(**device_times(kf, iters=10),
+                   eager_ms=eager_ms(kf, iters=10),
+                   plain_ms=time_ms(pf, iters=10),
+                   fwd_bwd_ms=time_ms(both(kern), iters=10),
+                   plain_fwd_bwd_ms=time_ms(both(plain), iters=10))
+    if mode == 'l2':
+        out['bound_ms'], out['bound_by'] = k3_bound_ms(n, p, c, 'fwd', False,
+                                                       masked=True)
+    else:   # no product: the two channel sums and the mask in, z out
+        out['bound_ms'], out['bound_by'] = 1e3 * 16 * n * p / MEM_BW, 'bytes'
+    return out
+
+
 def k3_peak_mib(fn):
     """MiB that one call of fn allocates at its peak above what was
     allocated before it."""
@@ -2673,12 +2791,14 @@ def check_k3(gen, shape, backward, masked=False, iters=20):
     with TF32, as the fits run it, z and the gradients (the tie and
     all-masked inputs too) within K3_TF32_BAR of the plain chain's, also
     with TF32. Timed (device cold and warm, eager, the plain chain) as its
-    path runs it: a fit's shape with TF32 (and in f32 beside it; and with
-    one block a row against splits_for's), the search's in f32; the
-    backward with both gradients, as its bound counts, and with dxn alone
-    as the fits run it, against the plain chain's backward alone (its
-    forward and backward less its forward). The forward's peak memory, the
-    kernel's and the plain chain's. Entries named like the launch counts."""
+    path runs it: a fit's shape with TF32 (and in f32 beside it), the
+    search's in f32; the backward with both gradients, as its bound
+    counts, and with dxn alone as the fits run it, against the plain
+    chain's backward alone (its forward and backward less its forward).
+    The design's own figures: each pass's device ms (k3_pass_ms, warm),
+    the scratch bytes of kernels/cx_chain.py::Plan and the peak memory of
+    each direction, the kernel's and (forward) the plain chain's. Entries
+    named like the launch counts."""
     import torch
     from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.kernels import cx_chain as K
@@ -2717,18 +2837,16 @@ def check_k3(gen, shape, backward, masked=False, iters=20):
     del runs
     tf32 = backward   # a fit's shape runs with TF32, the search's eval in f32
 
-    def fns(kind, prec, splits=None):
+    def fns(kind, prec):
         """(kernel, plain) callables of one direction at one precision;
         the backward's kernel takes need_dy=False for dxn alone, and its
         plain callable is the plain chain's forward and backward (its
         backward's nodes run on the forward's stream, so a backward alone
         cannot be captured in a graph apart from its forward)."""
         if kind == 'fwd':
-            return ((lambda: K.cx_colmax(xn, yn, 0.5, fv)) if splits is None
-                    else (lambda: K.cx_fwd_launch(xn, yn, fv, 0.5, prec,
-                                                  splits)),
+            return (lambda: K.cx_colmax(xn, yn, 0.5, fv),
                     lambda: K.cx_colmax_plain(xn, yn, 0.5, fv))
-        z, saved = K.cx_fwd_launch(xn, yn, fv, 0.5, prec, splits)
+        z, saved = K.cx_fwd_launch(xn, yn, fv, 0.5, prec)
 
         def plain():
             a, b = (t.detach().requires_grad_() for t in (xn, yn))
@@ -2759,12 +2877,16 @@ def check_k3(gen, shape, backward, masked=False, iters=20):
             if kind == 'bwd':
                 extra.update(plain_fwd_bwd_ms=p_both, dx_only_ms=time_ms(
                     lambda: kernel(need_dy=False), iters=iters))
-            if backward:
-                extra['splits1_ms'] = time_ms(fns(kind, prec, splits=1)[0],
-                                              iters=iters)
+            pl = K.plan(n, p, p, c)
+            extra.update(
+                passes_ms=k3_pass_ms(kernel),
+                scratch_bytes=K.buffer_bytes(
+                    pl.forward_buffers('cosine', prec) if kind == 'fwd' else
+                    pl.backward_buffers('cosine', True, True)),
+                product_tiles=pl.product_tiles(p, p if kind == 'fwd' else c),
+                peak_mib=k3_peak_mib(kernel))
             if kind == 'fwd':
-                extra.update(peak_mib=k3_peak_mib(kernel),
-                             plain_peak_mib=k3_peak_mib(plain))
+                extra['plain_peak_mib'] = k3_peak_mib(plain)
             del kernel, plain
         if tf32:
             with matmul_precision('float32'):
@@ -2795,6 +2917,28 @@ def check_k3_all(gen):
         check_k3(gen, K3_BATCHED, True, iters=10) + \
         check_k3(gen, K3_PATCH64, True, iters=10) + \
         check_k3(gen, K3_SEARCH, False, masked=True, iters=3)
+
+
+def check_k3_forms(gen):
+    """K3's l2 and l1 forms (no entry point runs them) at the 64^2
+    patches' 6 x 256 and the completion's 6 x 1,600 (k3_form_errs)."""
+    out = []
+    for mode in ('l2', 'l1'):
+        for n, p, c in (K3_PATCH64, K3_FIT):
+            e = k3_form_errs(gen, mode, n, p, c)
+            e['name'] = f'cx_chain_{mode}[{n}x{p}x{p}x{c}]'
+            out.append(e)
+            log(f"K3 {mode} form at {n}x{p}x{c}: passed {e['passed']}; "
+                + '; '.join(f"{t} vs f64 {e[t]['rel_err_vs_f64']} (plain "
+                            f"{e[t]['plain_rel_err_vs_f64']}), TF32 vs plain "
+                            f"{e[t]['tf32_err_vs_plain']}"
+                            for t in ('plain', 'masked'))
+                + f"; fwd {e['ms']:.4f} ms (warm {e['warm_ms']:.4f}, eager "
+                f"{e['eager_ms']:.4f}, bound {e['bound_ms']:.4f}; plain "
+                f"{e['plain_ms']:.4f}), "
+                f"fwd+bwd {e['fwd_bwd_ms']:.4f} (plain "
+                f"{e['plain_fwd_bwd_ms']:.4f})")
+    return out
 
 
 # ---- the multi-card slice: the mesh over torch.distributed ranks
@@ -3047,10 +3191,11 @@ def drive_multicard(batched_params, batched_ms, suite, entry):
 
 
 def main():
+    t0 = time.time()
     name, smi = phase_device()
     import torch
     from npp_tpu_torch.device import matmul_precision
-    phase_build()
+    wgmma = phase_build()
     gen = torch.Generator().manual_seed(0)
     with matmul_precision('float32'):
         log('kernel checks and the fit steps: TF32 off '
@@ -3072,20 +3217,23 @@ def main():
                 f"plain {k['plain_ms']:.4f} ms, bound {k['bound_us']:.1f} us "
                 f"({k['bound_by']})")
             if k['name'].startswith('cx_chain'):
+                log(f"  K3 passes (ms): {k['passes_ms']}; scratch bytes "
+                    f"{k['scratch_bytes']}; product tiles "
+                    f"{k['product_tiles']}")
                 log(f"  K3 {k['precision']}: warm {k['warm_ms']:.4f} ms; "
                     + ', '.join(f'{x} {k[x]:.4g}' for x in (
                         'tie_mask_err_vs_plain', 'tf32_err_vs_plain',
                         'tf32_rel_err_vs_f64', 'tf32_plain_rel_err_vs_f64',
                         'tf32_tie_mask_err_vs_plain', 'plain_fwd_bwd_ms',
-                        'dx_only_ms',
-                        'splits1_ms', 'ms_f32', 'plain_ms_f32',
+                        'dx_only_ms', 'ms_f32', 'plain_ms_f32',
                         'bound_ms_f32', 'peak_mib', 'plain_peak_mib')
                         if x in k))
             for seg in k.get('segments', ()):
                 log(f"  alone at {seg['shape']}: {seg['ms']:.4f} ms (eager "
                     f"{seg['eager_ms']:.4f}), bound "
                     f"{1e3 * seg['bound_ms']:.1f} us")
-        bad = [k['name'] for k in kernels if not k['passed']]
+        k3_forms = check_k3_forms(gen)
+        bad = [k['name'] for k in kernels + k3_forms if not k['passed']]
         if bad:
             fail(f'kernels disagree with their plain versions: {bad}')
         steps = dict(check_fit_step(), remapping=check_remap_step(),
@@ -3192,6 +3340,7 @@ def main():
                                 for r in multicard[label]['ranks']]
             for label in MC_PATHS for part in ('fit', 'ranking', 'suite')
             if part in multicard[label]['ranks'][0]}
+    log(f'all phases: {time.time() - t0:.1f} s')
     search = {k: v for k, v in stats.items() if k != 'fit_losses'}
     search.update(peak_bytes=search_peak,
                   fit_loss_first_last=[float(stats['fit_losses'][0]),
@@ -3223,6 +3372,7 @@ def main():
                           'train_psnr': chained_final['train_psnr'],
                           'val_psnr': chained_final['val_psnr'],
                           'val_lpips': chained_final['val_lpips']},
+                      'k3_forms': k3_forms, 'k3_wgmma_in_ptx': wgmma,
                       'tf32_gradient_cosine': cosines}), flush=True)
     print(smi, flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,14 @@
 // K3: the contextual-loss (CX) similarity chain, forward and backward.
 //
-// For each sample n, rows p (source positions, xn) and columns q (target
-// positions, yn), both mean-shifted and L2-normalised f32 rows of C values:
+// For each sample n, rows p (source positions, x) and columns q (target
+// positions, y):
 //
-//   s_pq = xn_p . yn_q
-//   d_pq = 1 - clamp(s_pq, 0, 1);  d_pq = 1e9 where fy_q = 0 (masked column)
+//   s_pq = x_p . y_q        (cosine, l2; l1: s_pq = x_p - y_q of the
+//                            channel sums, no product)
+//   d_pq = 1 - clamp(s_pq, 0, 1)               cosine (x, y normalised)
+//          max(|y_q|^2 - 2 s_pq + |x_p|^2, 0)  l2
+//          |s_pq|                              l1
+//   d_pq = 1e9 where fy_q = 0 (masked column)
 //   m_p  = min_q d_pq
 //   w_pq = exp((1 - d_pq / (m_p + 1e-5)) / h)
 //   S_p  = sum_q w_pq
@@ -12,335 +16,170 @@
 //   z_q  = max_p (fx_p * c_pq)
 //
 // with fx_p and fy_q one mask (feat_valid) read at row p and at column q
-// (P = Q; both 1 without a mask).
+// (P = Q; both 1 without a mask). The output is z (N, Q). Replaces
+// npp_tpu/losses/contextual.py:21-130, the three distances, the relative
+// distance, exp / row normalisation and masked column max that XLA fuses
+// there (there is no pl.pallas_call in npp_tpu), and JAX's gradient of the
+// chain. kernels/cx_chain.py holds the chain in PyTorch (the plain
+// versions) and the wrapper that allocates every buffer named below.
 //
-// The output is z (N, Q). Replaces npp_tpu/losses/contextual.py:21-130, the
-// cosine distance, relative distance, exp / row normalisation and masked
-// column max that XLA fuses there (there is no pl.pallas_call in npp_tpu),
-// and JAX's gradient of the same chain in xn and yn.
-// kernels/cx_chain.py::cx_colmax_plain is the chain in PyTorch.
+// Bound on an H100 SXM: operations. The forward is one product of
+// P x Q x C multiply-adds (2 N P Q C operations), the backward two, against
+// 495 TFLOP/s with TF32 tensor cores or 67 TFLOP/s in f32; the bytes the
+// function must move (x, y in, z out; the backward x, y, g in, dx, dy out)
+// are a few MB at the main paths' shapes.
 //
-// Bound on an H100 SXM: operations. Each sweep below is one product of
-// P x Q x C multiply-adds (2 N P Q C operations) against 495 TFLOP/s with
-// TF32 tensor cores or 67 TFLOP/s in f32; the bytes the function must move
-// are 2 N P C 4 in (xn, yn) and N Q 4 out, a few MB at the main paths'
-// shapes. The chain's (N, P, Q) matrices, four of 61 MB at the flagship
-// fit (6 x 1,600 x 1,600) and of 1.8 GB at the search's evaluation
-// (3 x 12,288 x 12,288), are never written to device memory: each sweep
-// recomputes its tile of s from xn and yn, which costs C = 256
-// multiply-adds per element against the 16 bytes per element a stored
-// matrix would move each way, and keeps a step's memory at its inputs.
-//
-// Design (simple first; wgmma and TMA are later work):
-//  - a block of 4 warps owns a tile of 32 rows (or 32 columns) of one
-//    sample, resident in shared memory, and streams the other operand's
-//    32-row tiles through two cp.async buffers. The product's tile is
-//    always 32 p x 32 q, each warp 16 x 16, and every tile of s starts at
-//    a multiple of 32 in p and in q, so a given element s_pq is computed by
-//    the same thread position with the same instructions in every sweep.
-//  - blocks in flight: the flagship's 6 x 1,600 rows make only 300 blocks
-//    of 32, about one wave at two blocks an SM (the shared memory, 100 KB a
-//    block at C = 256, allows two). So `splits` blocks share a row's (or a
-//    column's) streamed tiles, each over a contiguous part, and a small
-//    kernel merges their partial terms in split order
-//    (kernels/cx_chain.py::splits_for: 4 at the flagship, 1 at the
-//    search's 3 x 12,288; it leaves no split without a tile, and a block
-//    whose split is empty still waits for its own tile's copies before it
-//    reuses the shared memory). The backward's products write partial
-//    dxn / dyn that are summed in split order the same way.
-//  - products: with TF32 on (torch.backends.cuda.matmul.allow_tf32 at the
-//    forward's launch), mma.sync.m16n8k8 TF32 with the operands rounded by
-//    cvt.rna; with it off, f32 FFMA tiles laid out like the mma fragments,
-//    each element fmaf chains over chunks of 32 channels, added in order
-//    (C is a multiple of 32). The backward
-//    repeats the forward's precision (its recompute must give the
-//    forward's values bit for bit). 3xTF32 (three TF32 products) was 1.45x
-//    faster than the FFMA tiles but 3-4x further from float64 than the
-//    plain f32 chain, so f32 keeps FFMA.
-//  - the epilogue: w = ex2.approx(a0 - d rate) with a0 = log2(e) / h and the
-//    row's rate = a0 / (m + 1e-5), and c = w times the row's 1 / S: one
-//    fmaf and one MUFU op an element in place of two IEEE divisions and
-//    expf. Its arithmetic is written with explicit fmaf / __fmul_rn /
-//    __fadd_rn, never contracted, so d, w and c are the same bits in every
-//    sweep.
-//  - forward, three sweeps: (1) rows: m_p and l_p, the count of columns
-//    tied at the min; (2) rows: S_p (the exponent depends on m_p
-//    non-linearly, so (1) and (2) cannot merge online); (3) columns: z_q
-//    and k_q, the count of rows tied at the max. Only m, l, S (N, P) and
-//    z, k (N, Q) are stored.
+// Design: s once, in device memory.
+//  - the forward computes s with one product into an f32 scratch of
+//    N P ld floats (ld = Q rounded up to 32; 61 MB at the flagship fit's
+//    6 x 1,600 x 1,600, 1.81 GB at the search's 3 x 12,288), then reads it
+//    in three memory-bound passes: a warp a row for m_p and l_p (the
+//    columns tied at the min), then S_p (the exponent depends on m_p
+//    non-linearly, so the two cannot merge online: the row is read twice,
+//    the second time mostly from L1 / L2); blocks of 64 rows x 256 columns
+//    for the partial column maxima with their tie counts, merged in a
+//    last pass. The wrapper keeps s for the backward only when x or y
+//    needs a gradient.
+//  - the backward reads the saved s: a warp a row for A_p, E_p, F_p, then
+//    32 x 32 tiles that write G = dL/ds (and G^T through shared memory)
+//    into two more N P ld scratches, then dx = G y and dy = G^T x as two
+//    products. G is written to device memory, not formed in the
+//    products' operand loads, because the TF32 wgmma takes K-major
+//    operands only and G is the K-major A operand of both products in two
+//    orientations (q contiguous for dx, p for dy); y and x enter as
+//    transposed copies (N, C, ld) so that they are K-major B operands.
+//  - products (gemm below, C = A B^T with both operands K-major): with
+//    TF32 on (torch.backends.cuda.matmul.allow_tf32 at the forward's
+//    launch), 128 x 128 tiles of two warpgroups, wgmma.m64n128k8 TF32 from
+//    a ring of three 32-channel stages that TMA fills (128-byte swizzle,
+//    zero fill past the edges), two blocks an SM. wgmma reads a TF32
+//    operand by dropping an f32's low mantissa bits, so every operand is
+//    rounded to TF32 (cvt.rna, as cuBLAS and the tests assume) once, in
+//    the staged copies of x and y and in G as it is written: no cvt in an
+//    inner loop. With TF32 off, FFMA tiles of 128 x 128 for 256 threads,
+//    8 x 8 outputs a thread from 16-byte shared loads, each element summing
+//    its chunks of 32 channels apart and adding them in order (the f32 z
+//    met its float64 bar at 12,288 positions only so). The backward
+//    repeats the forward's precision.
+//  - the elementwise steps (distance, row_rate, weight below) are written
+//    with explicit fmaf / __fmul_rn / __fadd_rn, never contracted, and
+//    every pass reads the same stored bits of s, so d, w and c are the same
+//    bits in every pass. w = ex2.approx(a0 - d rate) with a0 = log2(e) / h
+//    and the row's rate = a0 / (m + 1e-5), c = w times the row's 1 / S.
 //  - backward, given g = dL/dz, r_pq = [fx_p c_pq == z_q] g_q / k_q:
 //      A_p = sum_q r c,  E_p = sum_q c d r,  F_p = sum_q c d  (valid q)
 //      dL/dt_pq = -(fx_p / h) c_pq (r_pq - A_p)
 //      B_p = dL/dm_p = fx_p (E_p - A_p F_p) / (h (m_p + 1e-5)^2)
 //      dL/dd_pq = dL/dt_pq / (m_p + 1e-5) + [d_pq == m_p] B_p / l_p
-//      G_pq = -dL/dd_pq [0 <= s_pq <= 1] [fy_q > 0]
-//      dxn = G yn (rows own, q streamed), dyn = G^T xn (columns own)
-//    one row sweep for A and B / l, then each product sweep recomputes its
-//    tile of G into shared memory and multiplies it with the streamed tile
-//    already there; dyn's sweep runs only when yn needs a gradient.
+//    then dL/ds = -dL/dd [0 <= s <= 1] (cosine), -2 dL/dd [raw >= 0]
+//    (l2: the norm terms -x_p sum_q dL/ds and -y_q sum_p dL/ds are added by
+//    the wrapper from the partial sums rsum / csum), and for l1 the
+//    channel sums' gradients -sum_q dL/dd sgn s and sum_p dL/dd sgn s from
+//    the same partial sums, with no product; the masks are torch.clamp's.
 //
 // What the design does about:
 //  - exact ties: torch.amax / amin (and JAX's max / min) split the gradient
 //    evenly among tied elements, and the fits' inputs (cx_pred * real_mask)
 //    zero whole regions, so identical rows and columns are common. The
-//    backward finds the ties by recomputing c and d and comparing them for
-//    equality with the saved z and m, which the bit-identical sweeps above
-//    make exact; l and k count the ties. m and z are exact min / max, S and
-//    the backward's row sums are taken in a fixed order (registers in tile
-//    order, a fixed shuffle tree, the two warps, then the splits in order):
-//    no atomics anywhere, so a launch repeats bit for bit.
+//    backward finds the ties by recomputing c and d from the stored s and
+//    comparing them for equality with the saved z and m; l and k count the
+//    ties. m and z are exact min / max, S and the backward's row sums are
+//    taken in a fixed order (a lane's columns in order, a fixed butterfly
+//    over the warp), the column maxima merge in chunk order: no atomics,
+//    so a launch repeats bit for bit.
 //  - masked samples: all columns masked gives d = 1e9 everywhere, m = 1e9,
-//    t = 1, w = 1 (to a few ulp here), and with all rows masked z = 0, as
-//    the plain chain gives;
-//    a masked column is never the min of a partly valid row and its weight
-//    exp(-huge) is exactly 0; a masked row's fx_p c_pq is 0 and wins no max
-//    that a valid row's positive value takes.
+//    t = 1, w = 1 (to a few ulp), and with all rows masked z = 0, as the
+//    plain chain gives; a masked column is never the min of a partly valid
+//    row and its weight exp(-huge) is exactly 0; a masked row's fx_p c_pq
+//    is 0 and wins no max that a valid row's positive value takes.
 //  - underflow: m_p = 0 makes t = d / 1e-5 and most w exactly 0; such
 //    columns can have z_q = 0, where every row ties (k_q = P) and each gets
 //    g_q / P, as amax's backward gives.
-//  - ragged edges: P and Q need not be multiples of 32; tiles load zeros
-//    past the edge (cp.async's zero fill) and the epilogues skip those rows
-//    and columns. C is a multiple of 32 up to 512 (the wrapper checks);
-//    dxn and dyn are written 256 columns a block.
+//  - ragged edges: P and Q need not be multiples of 32. TMA and the FFMA
+//    loads fill zeros past the rows; the scratches' pitches ld and ldt are
+//    Q and P rounded up to 32, and the columns between the edge and the
+//    pitch of G, G^T and the transposed copies are written as zeros, so a
+//    product's last chunk of channels reads zeros there. C is a multiple
+//    of 32 up to 512 (the wrapper checks).
+#include <cstddef>
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
-namespace {
-
-constexpr int kTile = 32;        // rows of an own or a streamed tile
-constexpr int kThreads = 128;    // 4 warps, 2 x 2 over the 32 x 32 s tile
-constexpr int kOutCols = 256;    // dxn / dyn columns of one block: 4 x 64
-constexpr int kGld = kTile + 4;  // row stride of the G tile in shared memory
-constexpr float kEps = 1e-5f;
-constexpr float kMasked = 1e9f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// the products' precision: f32 FFMA or TF32 tensor cores
-enum Prec { kF32 = 0, kTF32 = 1 };
-
-struct Chain {
-  const float* x;    // (N, P, C) xn
-  const float* y;    // (N, Q, C) yn
+// mirrors kernels/cx_chain.py::_Args field for field (outside the
+// unnamed namespace: the exported functions take it)
+struct CxArgs {
+  const float* x;    // (N, P, C) rows of x (xn; l2's raw rows); l1: (N, P)
+  const float* y;    // (N, Q, C); l1: (N, Q) channel sums
+  const float* xx;   // l2: (N, P) |x_p|^2, else null
+  const float* yy;   // l2: (N, Q) |y_q|^2
   const float* f;    // (N, P) mask of the rows and the columns, or null
+  float* xs;         // forward TF32: (N, P, C) x rounded; backward: (N, C,
+                     // ldt) x^T (rounded with TF32); else null
+  float* ys;         // forward TF32: (N, Q, C); backward: (N, C, ld) y^T
+  float* s;          // (N, P, ld) s
   float* m;          // (N, P) row min of d
   int* l;            // (N, P) columns tied at the min
-  float* s;          // (N, P) row sum of w
+  float* sum;        // (N, P) row sum of w
   float* z;          // (N, Q) column max of fx c
   int* k;            // (N, Q) rows tied at the max
+  float* cmax;       // (chunks, N, Q) partial column maxima
+  int* ccnt;         // (chunks, N, Q) their tie counts
   const float* g;    // (N, Q) dL/dz
   float* a;          // (N, P) A_p
   float* bl;         // (N, P) B_p / l_p
+  float* gx;         // (N, P, ld) G = dL/ds, or null
+  float* gy;         // (N, Q, ldt) G^T, or null
+  float* rsum;       // l2, l1: (N, P, ld / 32) partial row sums, else null
+  float* csum;       // l2, l1: (N, Q, ldt / 32) partial column sums
   float* dx;         // (N, P, C) or null
   float* dy;         // (N, Q, C) or null
-  float* part;       // (splits, 3, N max(P, Q)) partial row / column terms
-  int* partc;        // (splits, N max(P, Q)) partial counts
-  float* gpart;      // (splits, N max(P, Q) C) partial dxn / dyn
-  int n, p, q, c, splits;
+  int n, p, q, c, ld, ldt, mode, prec;
   float h;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
+namespace {
+
+constexpr float kEps = 1e-5f;
+constexpr float kMasked = 1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kColRows = 64;    // rows of s a block of the column pass reads
+constexpr int kColThreads = 256;
+constexpr int kRowWarps = 8;    // rows (a warp each) of a row-pass block
+constexpr int kTile = 32;       // the G pass's and the transposes' tiles
+
+// the products' tiles: 128 x 128 outputs, 32 channels a stage
+constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 3;
+constexpr int kGemmThreads = 256;
+constexpr int kStageBytes = (kBM + kBN) * kBK * 4;
+constexpr int kTmaSmem = kStages * kStageBytes + 1024 + 64;
+
+enum Mode { kCosine = 0, kL2 = 1, kL1 = 2 };
+enum Prec { kF32 = 0, kTF32 = 1 };
+
+
+// ---- the chain's elementwise steps, the same bits in every pass
+
+__device__ __forceinline__ float l2_raw(float s, float xx, float yy) {
+  return __fadd_rn(__fsub_rn(yy, __fmul_rn(2.0f, s)), xx);
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+template <int MODE>
+__device__ __forceinline__ float distance(float s, bool on, float xx,
+                                          float yy) {
+  if (!on) return kMasked;
+  if (MODE == kCosine) return __fsub_rn(1.0f, fminf(fmaxf(s, 0.0f), 1.0f));
+  if (MODE == kL2) return fmaxf(l2_raw(s, xx, yy), 0.0f);
+  return fabsf(s);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [r0, r0 + kTile) of a (rows, C) matrix into shared memory with row
-// stride C + 4; zeros past `rows`
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int r0, int rows, int C) {
-  const int per_row = C / 4;
-  for (int i = threadIdx.x; i < kTile * per_row; i += kThreads) {
-    const int r = i / per_row, v = i - r * per_row;
-    const bool ok = r0 + r < rows;
-    cp_async16(dst + r * (C + 4) + 4 * v,
-               ok ? src + static_cast<size_t>(r0 + r) * C + 4 * v : src, ok);
-  }
-}
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b on the tensor cores, the operands rounded to TF32
-__device__ __forceinline__ void mma_step(float (&d)[4], const float (&a)[4],
-                                         float b0, float b1) {
-  const uint32_t ua[4] = {tf32(a[0]), tf32(a[1]), tf32(a[2]), tf32(a[3])};
-  mma_tf32(d, ua, tf32(b0), tf32(b1));
-}
-
-// The thread's place in the 32 x 32 tile of s: warp (wr, wc) holds rows
-// 16 wr + g + 8 i (i = 0, 1) and columns 16 wc + 8 j + 2 t + e (j, e = 0, 1)
-// as acc[j][2 i + e], the layout of mma.m16n8k8's accumulators.
-struct Lane {
-  int g, t, r0, q0;
-  __device__ __forceinline__ Lane() {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    g = lane >> 2;
-    t = lane & 3;
-    r0 = (warp >> 1) * 16;
-    q0 = (warp & 1) * 16;
-  }
-  __device__ __forceinline__ int row(int i) const { return r0 + g + 8 * i; }
-  __device__ __forceinline__ int col(int j, int e) const {
-    return q0 + 8 * j + 2 * t + e;
-  }
-};
-
-// s of a 32 x 32 tile: xs holds its 32 xn rows, ys its 32 yn rows, each
-// with stride ld; every element sums over c = 0 .. C-1 in the same order
-// in every sweep
-template <int PREC>
-__device__ __forceinline__ void tile_product(float (&acc)[2][4],
-                                             const float* xs, const float* ys,
-                                             int ld, int C, const Lane& L) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-  if constexpr (PREC == kTF32) {
-    const float* ar = xs + (L.r0 + L.g) * ld + L.t;
-    const float* b0r = ys + (L.q0 + L.g) * ld + L.t;
-    const float* b1r = b0r + 8 * ld;
-#pragma unroll 4
-    for (int k0 = 0; k0 < C; k0 += 8) {
-      const float a[4] = {ar[k0], ar[k0 + 8 * ld], ar[k0 + 4],
-                          ar[k0 + 8 * ld + 4]};
-      mma_step(acc[0], a, b0r[k0], b0r[k0 + 4]);
-      mma_step(acc[1], a, b1r[k0], b1r[k0 + 4]);
-    }
-  } else {
-    const float* a0 = xs + (L.r0 + L.g) * ld;
-    const float* a1 = a0 + 8 * ld;
-    const float* b00 = ys + (L.q0 + 2 * L.t) * ld;
-    const float* b01 = b00 + ld;
-    const float* b10 = b00 + 8 * ld;
-    const float* b11 = b10 + ld;
-    // chunks of 32 channels summed apart, then added: half the rounding
-    // error of one chain over C, which at the search's 12,288 positions
-    // had put z 1.9x further from float64 than the plain chain
-    for (int k0 = 0; k0 < C; k0 += 32) {
-      float part[2][4] = {};
-      // two channels a load (8-byte shared loads, conflict-free at a
-      // stride of C + 4), each element's fmaf still in channel order
-#pragma unroll 4
-      for (int k = k0; k < k0 + 32; k += 2) {
-        const float2 u[2] = {*reinterpret_cast<const float2*>(a0 + k),
-                             *reinterpret_cast<const float2*>(a1 + k)};
-        const float2 v[4] = {*reinterpret_cast<const float2*>(b00 + k),
-                             *reinterpret_cast<const float2*>(b01 + k),
-                             *reinterpret_cast<const float2*>(b10 + k),
-                             *reinterpret_cast<const float2*>(b11 + k)};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-#pragma unroll
-            for (int i = 0; i < 2; ++i) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const float a = h ? u[i].y : u[i].x;
-                const float b = h ? v[2 * j + e].y : v[2 * j + e].x;
-                part[j][2 * i + e] = fmaf(a, b, part[j][2 * i + e]);
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[j][e] = __fadd_rn(acc[j][e], part[j][e]);
-    }
-  }
-}
-
-// out (32 rows x this warp's 64 of the block's 256 columns) += G (32 x 32,
-// gs with stride kGld) times the streamed tile ms (32 rows of C, stride ld)
-// at columns c0 + 64 warp ..
-template <int PREC>
-__device__ __forceinline__ void out_product(float (&o)[2][8][4],
-                                            const float* gs, const float* ms,
-                                            int ld, int C, int c0,
-                                            const Lane& L) {
-  const int cw = c0 + 64 * (threadIdx.x >> 5);
-  if constexpr (PREC == kTF32) {
-#pragma unroll
-    for (int k0 = 0; k0 < kTile; k0 += 8) {
-      float a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const float* ar = gs + (16 * mi + L.g) * kGld + k0 + L.t;
-        a[mi][0] = ar[0];
-        a[mi][1] = ar[8 * kGld];
-        a[mi][2] = ar[4];
-        a[mi][3] = ar[8 * kGld + 4];
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        if (cw + 8 * ni < C) {
-          const float* br = ms + (k0 + L.t) * ld + cw + 8 * ni + L.g;
-          mma_step(o[0][ni], a[0], br[0], br[4 * ld]);
-          mma_step(o[1][ni], a[1], br[0], br[4 * ld]);
-        }
-      }
-    }
-  } else {
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float u[2][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        u[mi][0] = gs[(16 * mi + L.g) * kGld + kk];
-        u[mi][1] = gs[(16 * mi + L.g + 8) * kGld + kk];
-      }
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        if (cw + 8 * ni < C) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              ms + kk * ld + cw + 8 * ni + 2 * L.t);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            o[mi][ni][0] = fmaf(u[mi][0], v.x, o[mi][ni][0]);
-            o[mi][ni][1] = fmaf(u[mi][0], v.y, o[mi][ni][1]);
-            o[mi][ni][2] = fmaf(u[mi][1], v.x, o[mi][ni][2]);
-            o[mi][ni][3] = fmaf(u[mi][1], v.y, o[mi][ni][3]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// The chain's elementwise steps, the same bits in every sweep. A row's
-// exponent is log2(e) (1 - d / (m + 1e-5)) / h = a0 - d rate with
-// a0 = log2(e) / h and rate = a0 / (m + 1e-5), taken by one fmaf and
-// ex2.approx; c = w / S is w times the row's 1 / S.
-__device__ __forceinline__ float distance(float s, bool on) {
-  return on ? __fsub_rn(1.0f, fminf(fmaxf(s, 0.0f), 1.0f)) : kMasked;
+// where the distance's clamp passes the gradient (torch.clamp's backward)
+template <int MODE>
+__device__ __forceinline__ bool passes(float s, float xx, float yy) {
+  if (MODE == kCosine) return s >= 0.0f && s <= 1.0f;
+  if (MODE == kL2) return l2_raw(s, xx, yy) >= 0.0f;
+  return true;
 }
 
 __device__ __forceinline__ float exp2_approx(float v) {
@@ -375,576 +214,736 @@ __device__ __forceinline__ void merge_max(float& m, int& c, float m2,
   m = hi;
 }
 
-// Row sweeps (a block owns 32 rows of xn and streams yn): kMin gives m and
-// l; kSum gives S; kTerms gives A and B / l.
-enum RowSweep { kMin = 0, kSum = 1, kTerms = 2 };
-
-// The streamed tiles [t0, t1) of split blockIdx.z of nt tiles.
-__device__ __forceinline__ void split_range(int nt, int splits, int& t0,
-                                            int& t1) {
-  const int per = (nt + splits - 1) / splits;
-  t0 = min(nt, static_cast<int>(blockIdx.z) * per);
-  t1 = min(nt, t0 + per);
+__device__ __forceinline__ float tf32_round(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
 }
 
-// A row's sums (v0, v1, v2, cnt) made final: m and l, S, or A and B / l.
-template <int MODE>
-__device__ __forceinline__ void finish_row(const Chain& ch, size_t at,
-                                           float v0, float v1, float v2,
-                                           int cnt) {
-  if (MODE == kMin) {
-    ch.m[at] = v0;
-    ch.l[at] = cnt;
-  } else if (MODE == kSum) {
-    ch.s[at] = v0;
-  } else {
-    const float me = __fadd_rn(ch.m[at], kEps);
-    const float fr = ch.f ? ch.f[at] : 1.0f;
-    const float B = fr * (v1 - v0 * v2) / (ch.h * me * me);
-    ch.a[at] = v0;
-    ch.bl[at] = B / static_cast<float>(ch.l[at]);
-  }
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
-template <int MODE, int PREC>
-__global__ void __launch_bounds__(kThreads) row_sweep(Chain ch) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = ch.c, ld = C + 4, P = ch.p, Q = ch.q, n = blockIdx.y;
-  const int p0 = blockIdx.x * kTile;
-  float* own = smem;
-  float* buf[2] = {smem + kTile * ld, smem + 2 * kTile * ld};
-  const float* X = ch.x + static_cast<size_t>(n) * P * C;
-  const float* Y = ch.y + static_cast<size_t>(n) * Q * C;
-  const float* fy = ch.f ? ch.f + static_cast<size_t>(n) * Q : nullptr;
-  const Lane L;
-  const float a0 = exponent_scale(ch.h);
+// ---- staging: TF32 copies and transposed copies of the operands
 
-  float rate[2] = {0.0f, 0.0f}, sinv[2] = {1.0f, 1.0f}, fr[2] = {1.0f, 1.0f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int p = p0 + L.row(i);
-    if (MODE != kMin && p < P) {
-      const size_t at = static_cast<size_t>(n) * P + p;
-      rate[i] = row_rate(ch.m[at], a0);
-      if (MODE == kTerms) {
-        sinv[i] = __frcp_rn(ch.s[at]);
-        if (ch.f) fr[i] = ch.f[at];
-      }
-    }
-  }
-  // kMin: (min, count); kSum: the sum; kTerms: A, E, F
-  const float inf = __int_as_float(0x7f800000);
-  float v0[2] = {MODE == kMin ? inf : 0.0f, MODE == kMin ? inf : 0.0f};
-  float v1[2] = {0.0f, 0.0f}, v2[2] = {0.0f, 0.0f};
-  int cnt[2] = {0, 0};
-
-  const int nt = (Q + kTile - 1) / kTile;
-  int t0, t1;
-  split_range(nt, ch.splits, t0, t1);
-  load_tile(own, X, p0, P, C);
-  if (t0 < t1) load_tile(buf[0], Y, t0 * kTile, Q, C);
-  cp_commit();
-  for (int it = t0; it < t1; ++it) {
-    const int b = (it - t0) & 1;
-    if (it + 1 < t1) {
-      load_tile(buf[b ^ 1], Y, (it + 1) * kTile, Q, C);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    float acc[2][4];
-    tile_product<PREC>(acc, own, buf[b], ld, C, L);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int q = it * kTile + L.col(j, e);
-        if (q >= Q) continue;
-        const bool on = fy == nullptr || fy[q] > 0.0f;
-        if (MODE == kTerms && !on) continue;
-        float zq = 0.0f, gk = 0.0f;
-        if (MODE == kTerms) {
-          const size_t at = static_cast<size_t>(n) * Q + q;
-          zq = ch.z[at];
-          gk = __fdiv_rn(ch.g[at], static_cast<float>(ch.k[at]));
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const float d = distance(acc[j][2 * i + e], on);
-          if (MODE == kMin) {
-            merge_min(v0[i], cnt[i], d, 1);
-          } else if (MODE == kSum) {
-            // compensated (Kahan) sum, v1 the lost low part: a row's S
-            // adds a thread's 4 columns of every tile, 1,536 terms at
-            // the search's 12,288 positions
-            const float y = __fsub_rn(weight(d, rate[i], a0), v1[i]);
-            const float t = __fadd_rn(v0[i], y);
-            v1[i] = __fsub_rn(__fsub_rn(t, v0[i]), y);
-            v0[i] = t;
-          } else {
-            const float c = __fmul_rn(weight(d, rate[i], a0), sinv[i]);
-            const float r = __fmul_rn(fr[i], c) == zq ? gk : 0.0f;
-            const float cd = __fmul_rn(c, d);
-            v0[i] = __fadd_rn(v0[i], __fmul_rn(r, c));
-            v1[i] = __fadd_rn(v1[i], __fmul_rn(cd, r));
-            v2[i] = __fadd_rn(v2[i], cd);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  cp_wait<0>();   // an empty split's own tile may still be landing
-  // the four lanes of a row (t), then the two warps of a row (wc), in order
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (MODE == kSum) {
-      v0[i] = __fsub_rn(v0[i], v1[i]);
-      v1[i] = 0.0f;
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      const float o0 = __shfl_xor_sync(0xffffffffu, v0[i], off);
-      if (MODE == kMin) {
-        merge_min(v0[i], cnt[i], o0,
-                  __shfl_xor_sync(0xffffffffu, cnt[i], off));
-      } else {
-        v0[i] = __fadd_rn(v0[i], o0);
-        if (MODE == kTerms) {
-          v1[i] = __fadd_rn(v1[i], __shfl_xor_sync(0xffffffffu, v1[i], off));
-          v2[i] = __fadd_rn(v2[i], __shfl_xor_sync(0xffffffffu, v2[i], off));
-        }
-      }
-    }
-  }
-  __syncthreads();
-  float* red = smem;   // (3, 2, kTile) floats, then (2, kTile) ints
-  int* redc = reinterpret_cast<int*>(smem + 6 * kTile);
-  const int wc = (threadIdx.x >> 5) & 1;
-  if (L.t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = L.row(i);
-      red[wc * kTile + r] = v0[i];
-      red[(2 + wc) * kTile + r] = v1[i];
-      red[(4 + wc) * kTile + r] = v2[i];
-      redc[wc * kTile + r] = cnt[i];
-    }
-  }
-  __syncthreads();
-  const int r = threadIdx.x;
-  if (r < kTile && p0 + r < P) {
-    const size_t at = static_cast<size_t>(n) * P + p0 + r;
-    float w0 = red[r], w1 = 0.0f, w2 = 0.0f;
-    int c = redc[r];
-    if (MODE == kMin) {
-      merge_min(w0, c, red[kTile + r], redc[kTile + r]);
-    } else {
-      w0 = __fadd_rn(w0, red[kTile + r]);
-      w1 = __fadd_rn(red[2 * kTile + r], red[3 * kTile + r]);
-      w2 = __fadd_rn(red[4 * kTile + r], red[5 * kTile + r]);
-    }
-    if (ch.splits == 1) {
-      finish_row<MODE>(ch, at, w0, w1, w2, c);
-    } else {
-      const size_t np = static_cast<size_t>(ch.n) * max(P, Q);
-      float* part = ch.part + 3 * np * blockIdx.z;
-      part[at] = w0;
-      part[np + at] = w1;
-      part[2 * np + at] = w2;
-      ch.partc[np * blockIdx.z + at] = c;
-    }
-  }
-}
-
-// The column sweep (a block owns 32 columns of yn and streams xn): z, k.
-template <int PREC>
-__global__ void __launch_bounds__(kThreads) col_max(Chain ch) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = ch.c, ld = C + 4, P = ch.p, Q = ch.q, n = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  float* own = smem;
-  float* buf[2] = {smem + kTile * ld, smem + 2 * kTile * ld};
-  const float* X = ch.x + static_cast<size_t>(n) * P * C;
-  const float* Y = ch.y + static_cast<size_t>(n) * Q * C;
-  const Lane L;
-  const float a0 = exponent_scale(ch.h);
-
-  bool on[2][2];
-  float mx[2][2];
-  int cnt[2][2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int q = q0 + L.col(j, e);
-      on[j][e] = q < Q && (ch.f == nullptr ||
-                           ch.f[static_cast<size_t>(n) * Q + q] > 0.0f);
-      mx[j][e] = -__int_as_float(0x7f800000);
-      cnt[j][e] = 0;
-    }
-
-  const int nt = (P + kTile - 1) / kTile;
-  int t0, t1;
-  split_range(nt, ch.splits, t0, t1);
-  load_tile(own, Y, q0, Q, C);
-  if (t0 < t1) load_tile(buf[0], X, t0 * kTile, P, C);
-  cp_commit();
-  for (int it = t0; it < t1; ++it) {
-    const int b = (it - t0) & 1;
-    if (it + 1 < t1) {
-      load_tile(buf[b ^ 1], X, (it + 1) * kTile, P, C);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    float acc[2][4];
-    tile_product<PREC>(acc, buf[b], own, ld, C, L);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int p = it * kTile + L.row(i);
-      if (p >= P) continue;
-      const size_t at = static_cast<size_t>(n) * P + p;
-      const float rate = row_rate(ch.m[at], a0);
-      const float sinv = __frcp_rn(ch.s[at]);
-      const float fr = ch.f ? ch.f[at] : 1.0f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float d = distance(acc[j][2 * i + e], on[j][e]);
-          const float c = __fmul_rn(weight(d, rate, a0), sinv);
-          merge_max(mx[j][e], cnt[j][e], __fmul_rn(fr, c), 1);
-        }
-    }
-    __syncthreads();
-  }
-
-  cp_wait<0>();   // an empty split's own tile may still be landing
-  // the eight lanes of a column (g), then the two warps of a column (wr)
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off <= 16; off <<= 1)
-        merge_max(mx[j][e], cnt[j][e],
-                  __shfl_xor_sync(0xffffffffu, mx[j][e], off),
-                  __shfl_xor_sync(0xffffffffu, cnt[j][e], off));
-  __syncthreads();
-  float* red = smem;
-  int* redc = reinterpret_cast<int*>(smem + 2 * kTile);
-  const int wr = threadIdx.x >> 6;
-  if (L.g == 0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        red[wr * kTile + L.col(j, e)] = mx[j][e];
-        redc[wr * kTile + L.col(j, e)] = cnt[j][e];
-      }
-  }
-  __syncthreads();
-  const int c = threadIdx.x;
-  if (c < kTile && q0 + c < Q) {
-    float hi = red[c];
-    int k = redc[c];
-    merge_max(hi, k, red[kTile + c], redc[kTile + c]);
-    const size_t at = static_cast<size_t>(n) * Q + q0 + c;
-    if (ch.splits == 1) {
-      ch.z[at] = hi;
-      ch.k[at] = k;
-    } else {
-      const size_t nq = static_cast<size_t>(ch.n) * max(P, Q);
-      ch.part[3 * nq * blockIdx.z + at] = hi;
-      ch.partc[nq * blockIdx.z + at] = k;
-    }
-  }
-}
-
-// The splits' partial rows (MODE of RowSweep) or columns (MODE = -1: max
-// and count) merged in split order; one thread a row or column.
-template <int MODE>
-__global__ void merge_splits(Chain ch) {
-  const size_t rows = static_cast<size_t>(ch.n) * (MODE < 0 ? ch.q : ch.p);
-  const size_t at = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (at >= rows) return;
-  const size_t np = static_cast<size_t>(ch.n) * max(ch.p, ch.q);
-  float v0 = ch.part[at], v1 = ch.part[np + at], v2 = ch.part[2 * np + at];
-  int c = ch.partc[at];
-  for (int z = 1; z < ch.splits; ++z) {
-    const float* part = ch.part + 3 * np * z;
-    const int cz = ch.partc[np * z + at];
-    if (MODE < 0) {
-      merge_max(v0, c, part[at], cz);
-    } else if (MODE == kMin) {
-      merge_min(v0, c, part[at], cz);
-    } else {
-      v0 = __fadd_rn(v0, part[at]);
-      v1 = __fadd_rn(v1, part[np + at]);
-      v2 = __fadd_rn(v2, part[2 * np + at]);
-    }
-  }
-  if (MODE < 0) {
-    ch.z[at] = v0;
-    ch.k[at] = c;
-  } else {
-    finish_row<MODE>(ch, at, v0, v1, v2, c);
-  }
-}
-
-// out[i] = sum over splits of gpart[z][i], in split order
-__global__ void sum_splits(const float* gpart, float* out, size_t count,
-                           int splits) {
+// dst[i] = src[i] rounded to TF32, count a multiple of 4
+__global__ void cx_round_copy(const float* src, float* dst, size_t count4) {
   const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float v = gpart[i];
-  for (int z = 1; z < splits; ++z) v = __fadd_rn(v, gpart[count * z + i]);
-  out[i] = v;
+  if (i >= count4) return;
+  const float4 v = reinterpret_cast<const float4*>(src)[i];
+  reinterpret_cast<float4*>(dst)[i] =
+      make_float4(tf32_round(v.x), tf32_round(v.y), tf32_round(v.z),
+                  tf32_round(v.w));
 }
 
-// One product sweep of the backward. OWN_ROWS: the block owns 32 rows of
-// xn, streams yn and gives dxn = G yn; else it owns 32 columns of yn,
-// streams xn and gives dyn = G^T xn. Each block makes 256 of the C
-// columns (blockIdx.x's chunk) over its split of the streamed tiles.
-template <bool OWN_ROWS, int PREC>
-__global__ void __launch_bounds__(kThreads) grad_product(Chain ch,
-                                                         int chunks) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = ch.c, ld = C + 4, P = ch.p, Q = ch.q, n = blockIdx.y;
-  const int o0 = (blockIdx.x / chunks) * kTile;
-  const int c0 = (blockIdx.x % chunks) * kOutCols;
-  float* own = smem;
-  float* buf[2] = {smem + kTile * ld, smem + 2 * kTile * ld};
-  float* gs = smem + 3 * kTile * ld;
-  const float* X = ch.x + static_cast<size_t>(n) * P * C;
-  const float* Y = ch.y + static_cast<size_t>(n) * Q * C;
-  const Lane L;
-  const float a0 = exponent_scale(ch.h);
-  const float hinv = __frcp_rn(ch.h);
+// dst (N, C, ldr) = src (N, R, C) transposed, zeros for r in [R, ldr),
+// rounded to TF32 with `to_tf32`; block (32, 8), grid (ldr / 32, C / 32, N)
+__global__ void cx_transpose(const float* src, float* dst, int R, int C,
+                              int ldr, int to_tf32) {
+  __shared__ float t[kTile][kTile + 1];
+  const int n = blockIdx.z, r0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const float* S = src + static_cast<size_t>(n) * R * C;
+  float* D = dst + static_cast<size_t>(n) * C * ldr;
+  for (int i = threadIdx.y; i < kTile; i += 8) {
+    const int r = r0 + i;
+    const float v = r < R ? S[static_cast<size_t>(r) * C + c0 + threadIdx.x]
+                          : 0.0f;
+    t[i][threadIdx.x] = to_tf32 ? tf32_round(v) : v;
+  }
+  __syncthreads();
+  for (int i = threadIdx.y; i < kTile; i += 8)
+    D[static_cast<size_t>(c0 + i) * ldr + r0 + threadIdx.x] =
+        t[threadIdx.x][i];
+}
 
-  // the rows' terms and the columns' (on, z, g / k); the own side's are
-  // read once, the streamed side's every tile
-  float rm[2], rrate[2], rsinv[2], rf[2], ra[2], rb[2], rk[2];
-  bool con[2][2];
-  float cz[2][2], cg[2][2];
-  auto rows_at = [&](int base) {
+// l1's s_pq = x_p - y_q; grid (ceil(Q / 256), P, N)
+__global__ void cx_l1_fill(CxArgs a) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = blockIdx.z, row = n * a.p + blockIdx.y;
+  if (q >= a.q) return;
+  a.s[static_cast<size_t>(row) * a.ld + q] =
+      __fsub_rn(a.x[row], a.y[static_cast<size_t>(n) * a.q + q]);
+}
+
+// ---- products: out (batch, M, ldo) = A (batch, M, K) B (batch, Ncols, K)^T
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// a (32 channels x rows) box of a 3-D tensor map into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int k0, int row0,
+                                         int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(k0),
+      "r"(row0), "r"(n)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile written by TMA with
+// the 128-byte swizzle: rows of 128 bytes (32 TF32 values), groups of 8
+// rows 1,024 bytes apart
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) | (static_cast<uint64_t>(64) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void acc_fence(float (&d)[64]) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int p = base + L.row(i);
-      rm[i] = -1.0f;   // marks a row past the edge
-      if (p < P) {
-        const size_t at = static_cast<size_t>(n) * P + p;
-        rm[i] = ch.m[at];
-        rrate[i] = row_rate(rm[i], a0);
-        rsinv[i] = __frcp_rn(ch.s[at]);
-        rf[i] = ch.f ? ch.f[at] : 1.0f;
-        ra[i] = ch.a[at];
-        rb[i] = ch.bl[at];
-        // dL/dd = -(fx / h) c (r - A) / (m + 1e-5) + [d = m] B / l
-        rk[i] = rf[i] * hinv / __fadd_rn(rm[i], kEps);
-      }
-    }
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, this warpgroup's rows) += A (64 x 8) B (128 x 8)^T in TF32
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The TF32 product. Block: two warpgroups, rows [64 wg, 64 wg + 64) of
+// the block's 128; thread 0 keeps the next stages' TMA loads in flight
+// while both warpgroups run wgmma on the stage that has landed.
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    cx_gemm_tf32(const __grid_constant__ CUtensorMap ma,
+              const __grid_constant__ CUtensorMap mb, float* out, int M,
+              int ncols, int K, int ldo) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  // the 128-byte swizzle wants its tiles on 1,024-byte boundaries
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) &
+      ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
+  const int n = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nk = (K + kBK - 1) / kBK;
+  auto stage_a = [&](int s) { return base + s * kStageBytes; };
+  auto stage_b = [&](int s) { return base + s * kStageBytes + kBM * kBK * 4; };
+  auto load_stage = [&](int s, int kt) {
+    mbar_expect_tx(&full[s], kStageBytes);
+    tma_load(stage_a(s), &ma, &full[s], kt * kBK, m0, n);
+    tma_load(stage_b(s), &mb, &full[s], kt * kBK, n0, n);
   };
-  auto cols_at = [&](int base) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int q = base + L.col(j, e);
-        const size_t at = static_cast<size_t>(n) * Q + q;
-        con[j][e] = q < Q && (ch.f == nullptr || ch.f[at] > 0.0f);
-        if (con[j][e]) {
-          cz[j][e] = ch.z[at];
-          cg[j][e] = __fdiv_rn(ch.g[at], static_cast<float>(ch.k[at]));
-        }
-      }
-  };
-  if (OWN_ROWS) rows_at(o0); else cols_at(o0);
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kStages && s < nk; ++s) load_stage(s, s);
 
-  float o[2][8][4];
+  float d[64];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint32_t a0 = smem_addr(stage_a(s)) + wg * 64 * kBK * 4;
+    const uint32_t b0 = smem_addr(stage_b(s));
+    acc_fence(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[mi][ni][e] = 0.0f;
-
-  const float* own_src = OWN_ROWS ? X : Y;
-  const float* other = OWN_ROWS ? Y : X;
-  const int own_rows = OWN_ROWS ? P : Q, other_rows = OWN_ROWS ? Q : P;
-  const int nt = (other_rows + kTile - 1) / kTile;
-  int t0, t1;
-  split_range(nt, ch.splits, t0, t1);
-  load_tile(own, own_src, o0, own_rows, C);
-  if (t0 < t1) load_tile(buf[0], other, t0 * kTile, other_rows, C);
-  cp_commit();
-  for (int it = t0; it < t1; ++it) {
-    const int b = (it - t0) & 1;
-    if (it + 1 < t1) {
-      load_tile(buf[b ^ 1], other, (it + 1) * kTile, other_rows, C);
-      cp_commit();
-    }
-    if (OWN_ROWS) cols_at(it * kTile); else rows_at(it * kTile);
-    if (it + 1 < t1) cp_wait<1>(); else cp_wait<0>();
-    __syncthreads();
-    const float* cur = buf[b];
-    float acc[2][4];
-    tile_product<PREC>(acc, OWN_ROWS ? own : cur, OWN_ROWS ? cur : own, ld,
-                       C, L);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float s = acc[j][2 * i + e];
-          float gv = 0.0f;
-          if (rm[i] >= 0.0f && con[j][e] && s >= 0.0f && s <= 1.0f) {
-            const float d = distance(s, true);
-            const float c = __fmul_rn(weight(d, rrate[i], a0), rsinv[i]);
-            const float r = __fmul_rn(rf[i], c) == cz[j][e] ? cg[j][e] : 0.0f;
-            gv = rk[i] * c * (r - ra[i]) - (d == rm[i] ? rb[i] : 0.0f);
-          }
-          const int pr = L.row(i), qc = L.col(j, e);
-          gs[OWN_ROWS ? pr * kGld + qc : qc * kGld + pr] = gv;
-        }
-    __syncthreads();
-    out_product<PREC>(o, gs, cur, ld, C, c0, L);
-    __syncthreads();
+    for (int kk = 0; kk < kBK / 8; ++kk)
+      wgmma_tf32(d, sw128_desc(a0 + kk * 32), sw128_desc(b0 + kk * 32));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    acc_fence(d);
+    __syncthreads();   // both warpgroups are done with stage s
+    if (tid == 0 && kt + kStages < nk) load_stage(s, kt + kStages);
   }
 
-  cp_wait<0>();   // an empty split's own tile may still be landing
-  const size_t count = static_cast<size_t>(ch.n) * own_rows * C;
-  float* out = ch.splits == 1 ? (OWN_ROWS ? ch.dx : ch.dy)
-                              : ch.gpart + count * blockIdx.z;
-  out += static_cast<size_t>(n) * own_rows * C;
-  const int cw = c0 + 64 * (threadIdx.x >> 5);
+  // thread (warp w of the warpgroup, lane): rows 16 w + lane / 4 + 8 i,
+  // columns 8 j + 2 (lane % 4) + e as d[4 j + 2 i + e]
+  const int lane = tid & 31, w = (tid >> 5) & 3;
+  float* O = out + static_cast<size_t>(n) * M * ldo;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 2; ++i) {
+    const int row = m0 + wg * 64 + 16 * w + (lane >> 2) + 8 * i;
+    if (row >= M) continue;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = o0 + 16 * mi + L.g + 8 * half;
-      if (row >= own_rows) continue;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni) {
-        const int col = cw + 8 * ni + 2 * L.t;
-        if (col < C)
-          *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * C +
-                                     col) =
-              make_float2(o[mi][ni][2 * half], o[mi][ni][2 * half + 1]);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane & 3);
+      if (col < ncols)
+        *reinterpret_cast<float2*>(O + static_cast<size_t>(row) * ldo + col) =
+            make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
     }
+  }
 }
 
-size_t sweep_smem(int c) { return 3ull * kTile * (c + 4) * sizeof(float); }
+// The f32 product: 256 threads, thread (ty, tx) of 16 x 16 owns rows
+// 4 ty + i and 64 + 4 ty + i, columns 4 tx + j and 64 + 4 tx + j. Each
+// stage of 32 channels is summed apart and then added (chunks of 32).
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    cx_gemm_f32(const float* A, const float* B, float* out, int M, int ncols,
+             int K, int lda, int ldb, int ldo) {
+  __shared__ __align__(16) float As[kBK][kBM + 4];
+  __shared__ __align__(16) float Bs[kBK][kBN + 4];
+  const int n = blockIdx.z, m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, kc = (tid >> 5) * 4;   // load: row lane + 32 i
+  const float* Ab = A + static_cast<size_t>(n) * M * lda;
+  const float* Bb = B + static_cast<size_t>(n) * ncols * ldb;
+  const int nk = (K + kBK - 1) / kBK;
+  float4 ra[4], rb[4];
+  auto load = [&](int kt) {
+    const int k = kt * kBK + kc;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = lane + 32 * i;
+      ra[i] = (m0 + r < M && k < K)
+                  ? *reinterpret_cast<const float4*>(
+                        Ab + static_cast<size_t>(m0 + r) * lda + k)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      rb[i] = (n0 + r < ncols && k < K)
+                  ? *reinterpret_cast<const float4*>(
+                        Bb + static_cast<size_t>(n0 + r) * ldb + k)
+                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = lane + 32 * i;
+      As[kc][r] = ra[i].x;
+      As[kc + 1][r] = ra[i].y;
+      As[kc + 2][r] = ra[i].z;
+      As[kc + 3][r] = ra[i].w;
+      Bs[kc][r] = rb[i].x;
+      Bs[kc + 1][r] = rb[i].y;
+      Bs[kc + 2][r] = rb[i].z;
+      Bs[kc + 3][r] = rb[i].w;
+    }
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  load(0);
+  store();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) load(kt + 1);
+    float part[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) part[i][j] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][4 * ty]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][4 * tx]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + 4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          part[i][j] = fmaf(av[i], bv[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = __fadd_rn(acc[i][j], part[i][j]);
+    __syncthreads();
+    if (kt + 1 < nk) {
+      store();
+      __syncthreads();
+    }
+  }
+  float* O = out + static_cast<size_t>(n) * M * ldo;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? 4 * ty + i : 64 + 4 * ty + i - 4);
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 64 * h + 4 * tx;
+      if (col < ncols)
+        *reinterpret_cast<float4*>(O + static_cast<size_t>(row) * ldo + col) =
+            make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                        acc[i][4 * h + 3]);
+    }
+  }
+}
 
-int tiles(int rows) { return (rows + kTile - 1) / kTile; }
+// ---- the passes over s
 
-template <typename K, typename... Args>
-cudaError_t launch(K kernel, dim3 grid, size_t smem, cudaStream_t stream,
-                   Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
-  return cudaGetLastError();
+// the column terms of one column: on, and l2's |y_q|^2
+struct Col {
+  bool on;
+  float yy;
+};
+
+template <int MODE>
+__device__ __forceinline__ Col column(const CxArgs& a, int n, int q) {
+  const size_t at = static_cast<size_t>(n) * a.q + q;
+  return Col{a.f == nullptr || a.f[at] > 0.0f,
+             MODE == kL2 ? a.yy[at] : 0.0f};
+}
+
+// Forward rows, a warp a row: m, l, then S (compensated).
+template <int MODE>
+__global__ void __launch_bounds__(32 * kRowWarps) cx_row_stats(CxArgs a) {
+  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (row >= a.n * a.p) return;
+  const int lane = threadIdx.x & 31, n = row / a.p, Q = a.q;
+  const float* sr = a.s + static_cast<size_t>(row) * a.ld;
+  const float xx = MODE == kL2 ? a.xx[row] : 0.0f;
+  const float a0 = exponent_scale(a.h);
+  float mn = __int_as_float(0x7f800000);
+  int cnt = 0;
+  for (int q = lane; q < Q; q += 32) {
+    const Col c = column<MODE>(a, n, q);
+    merge_min(mn, cnt, distance<MODE>(sr[q], c.on, xx, c.yy), 1);
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    merge_min(mn, cnt, __shfl_xor_sync(0xffffffffu, mn, off),
+              __shfl_xor_sync(0xffffffffu, cnt, off));
+  const float rate = row_rate(mn, a0);
+  // compensated (Kahan) sum, lo the lost low part: a lane adds Q / 32
+  // terms, 384 at the search's 12,288 positions
+  float hi = 0.0f, lo = 0.0f;
+  for (int q = lane; q < Q; q += 32) {
+    const Col c = column<MODE>(a, n, q);
+    const float v = __fsub_rn(
+        weight(distance<MODE>(sr[q], c.on, xx, c.yy), rate, a0), lo);
+    const float t = __fadd_rn(hi, v);
+    lo = __fsub_rn(__fsub_rn(t, hi), v);
+    hi = t;
+  }
+  const float S = warp_sum(__fsub_rn(hi, lo));
+  if (lane == 0) {
+    a.m[row] = mn;
+    a.l[row] = cnt;
+    a.sum[row] = S;
+  }
+}
+
+// Partial column maxima: block (column block, chunk of kColRows rows, n).
+template <int MODE>
+__global__ void __launch_bounds__(kColThreads) cx_col_partial(CxArgs a) {
+  __shared__ float srate[kColRows], ssinv[kColRows], sfr[kColRows],
+      sxx[kColRows];
+  const int n = blockIdx.z, p0 = blockIdx.y * kColRows;
+  const int q = blockIdx.x * kColThreads + threadIdx.x;
+  const int rows = min(kColRows, a.p - p0);
+  const float a0 = exponent_scale(a.h);
+  if (static_cast<int>(threadIdx.x) < rows) {
+    const size_t at = static_cast<size_t>(n) * a.p + p0 + threadIdx.x;
+    srate[threadIdx.x] = row_rate(a.m[at], a0);
+    ssinv[threadIdx.x] = __frcp_rn(a.sum[at]);
+    sfr[threadIdx.x] = a.f ? a.f[at] : 1.0f;
+    sxx[threadIdx.x] = MODE == kL2 ? a.xx[at] : 0.0f;
+  }
+  __syncthreads();
+  if (q >= a.q) return;
+  const Col c = column<MODE>(a, n, q);
+  const float* sc = a.s + (static_cast<size_t>(n) * a.p + p0) * a.ld + q;
+  float mx = -__int_as_float(0x7f800000);
+  int cnt = 0;
+  for (int i = 0; i < rows; ++i) {
+    const float d = distance<MODE>(sc[static_cast<size_t>(i) * a.ld], c.on,
+                                   sxx[i], c.yy);
+    const float cv = __fmul_rn(weight(d, srate[i], a0), ssinv[i]);
+    merge_max(mx, cnt, __fmul_rn(sfr[i], cv), 1);
+  }
+  const size_t at = (static_cast<size_t>(blockIdx.y) * a.n + n) * a.q + q;
+  a.cmax[at] = mx;
+  a.ccnt[at] = cnt;
+}
+
+// z, k: the chunks' partial maxima merged in chunk order
+__global__ void cx_col_merge(CxArgs a, int chunks) {
+  const size_t nq = static_cast<size_t>(a.n) * a.q;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  float mx = a.cmax[i];
+  int cnt = a.ccnt[i];
+  for (int ch = 1; ch < chunks; ++ch)
+    merge_max(mx, cnt, a.cmax[nq * ch + i], a.ccnt[nq * ch + i]);
+  a.z[i] = mx;
+  a.k[i] = cnt;
+}
+
+// Backward rows, a warp a row: A, then B / l.
+template <int MODE>
+__global__ void __launch_bounds__(32 * kRowWarps) cx_row_terms(CxArgs a) {
+  const int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  if (row >= a.n * a.p) return;
+  const int lane = threadIdx.x & 31, n = row / a.p, Q = a.q;
+  const float* sr = a.s + static_cast<size_t>(row) * a.ld;
+  const float xx = MODE == kL2 ? a.xx[row] : 0.0f;
+  const float a0 = exponent_scale(a.h);
+  const float m = a.m[row];
+  const float rate = row_rate(m, a0), sinv = __frcp_rn(a.sum[row]);
+  const float fr = a.f ? a.f[row] : 1.0f;
+  float A = 0.0f, E = 0.0f, F = 0.0f;
+  for (int q = lane; q < Q; q += 32) {
+    const Col c = column<MODE>(a, n, q);
+    if (!c.on) continue;
+    const size_t at = static_cast<size_t>(n) * Q + q;
+    const float d = distance<MODE>(sr[q], true, xx, c.yy);
+    const float cv = __fmul_rn(weight(d, rate, a0), sinv);
+    const float r = __fmul_rn(fr, cv) == a.z[at]
+                        ? __fdiv_rn(a.g[at], static_cast<float>(a.k[at]))
+                        : 0.0f;
+    const float cd = __fmul_rn(cv, d);
+    A = __fadd_rn(A, __fmul_rn(r, cv));
+    E = __fadd_rn(E, __fmul_rn(cd, r));
+    F = __fadd_rn(F, cd);
+  }
+  A = warp_sum(A);
+  E = warp_sum(E);
+  F = warp_sum(F);
+  if (lane == 0) {
+    const float me = __fadd_rn(m, kEps);
+    const float B = fr * (E - A * F) / (a.h * me * me);
+    a.a[row] = A;
+    a.bl[row] = B / static_cast<float>(a.l[row]);
+  }
+}
+
+// G from s, a 32 x 32 tile a block (32, 8) of (p, q): G (q contiguous)
+// and G^T (p contiguous), rounded to TF32 with it on, zeros between the
+// edge and the pitch; l2 and l1 also write the tile's partial row and
+// column sums (l2 of G, l1 of dL/dd sgn s, unrounded).
+template <int MODE>
+__global__ void __launch_bounds__(256) cx_grad_tiles(CxArgs a) {
+  __shared__ float t[kTile][kTile + 1];
+  __shared__ float rrate[kTile], rsinv[kTile], rf[kTile], ra[kTile],
+      rbl[kTile], rk[kTile], rm[kTile], rxx[kTile];
+  __shared__ float cz[kTile], cg[kTile], cyy[kTile];
+  __shared__ int con[kTile];
+  const int n = blockIdx.z, p0 = blockIdx.y * kTile, q0 = blockIdx.x * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int P = a.p, Q = a.q;
+  const float a0 = exponent_scale(a.h);
+  if (ty == 0) {
+    const int p = p0 + tx;
+    rm[tx] = -1.0f;   // marks a row past the edge
+    if (p < P) {
+      const size_t at = static_cast<size_t>(n) * P + p;
+      const float m = a.m[at];
+      rm[tx] = m;
+      rrate[tx] = row_rate(m, a0);
+      rsinv[tx] = __frcp_rn(a.sum[at]);
+      rf[tx] = a.f ? a.f[at] : 1.0f;
+      ra[tx] = a.a[at];
+      rbl[tx] = a.bl[at];
+      // dL/dd = -(fx / h) c (r - A) / (m + 1e-5) + [d = m] B / l
+      rk[tx] = rf[tx] * __frcp_rn(a.h) / __fadd_rn(m, kEps);
+      rxx[tx] = MODE == kL2 ? a.xx[at] : 0.0f;
+    }
+  } else if (ty == 1) {
+    const int q = q0 + tx;
+    con[tx] = 0;
+    if (q < Q) {
+      const Col c = column<MODE>(a, n, q);
+      const size_t at = static_cast<size_t>(n) * Q + q;
+      con[tx] = c.on;
+      cyy[tx] = c.yy;
+      cz[tx] = a.z[at];
+      cg[tx] = __fdiv_rn(a.g[at], static_cast<float>(a.k[at]));
+    }
+  }
+  __syncthreads();
+  const bool tf32 = a.prec == kTF32;
+  const int nqt = a.ld / kTile, npt = a.ldt / kTile;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int pr = ty + 8 * i, p = p0 + pr;
+    float v = 0.0f;
+    if (rm[pr] >= 0.0f && con[tx]) {
+      const float sv = a.s[(static_cast<size_t>(n) * P + p) * a.ld + q0 + tx];
+      if (passes<MODE>(sv, rxx[pr], cyy[tx])) {
+        const float d = distance<MODE>(sv, true, rxx[pr], cyy[tx]);
+        const float cv = __fmul_rn(weight(d, rrate[pr], a0), rsinv[pr]);
+        const float r = __fmul_rn(rf[pr], cv) == cz[tx] ? cg[tx] : 0.0f;
+        // -dL/dd
+        const float gv = rk[pr] * cv * (r - ra[pr]) - (d == rm[pr] ? rbl[pr]
+                                                                   : 0.0f);
+        v = MODE == kCosine ? gv
+            : MODE == kL2   ? 2.0f * gv
+                            : (sv > 0.0f ? gv : sv < 0.0f ? -gv : 0.0f);
+      }
+    }
+    if (a.gx && p < P)
+      a.gx[(static_cast<size_t>(n) * P + p) * a.ld + q0 + tx] =
+          tf32 ? tf32_round(v) : v;
+    t[pr][tx] = v;
+    if (MODE != kCosine) {
+      const float rs = warp_sum(v);
+      if (tx == 0 && p < P)
+        a.rsum[(static_cast<size_t>(n) * P + p) * nqt + blockIdx.x] = rs;
+    }
+  }
+  __syncthreads();
+  if (a.gy) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = q0 + ty + 8 * i;
+      if (q < Q) {
+        const float v = t[tx][ty + 8 * i];
+        a.gy[(static_cast<size_t>(n) * Q + q) * a.ldt + p0 + tx] =
+            tf32 ? tf32_round(v) : v;
+      }
+    }
+  }
+  if (MODE != kCosine && ty == 0 && q0 + tx < Q) {
+    float cs = 0.0f;
+    for (int pr = 0; pr < kTile; ++pr) cs = __fadd_rn(cs, t[pr][tx]);
+    a.csum[(static_cast<size_t>(n) * Q + q0 + tx) * npt + blockIdx.y] = cs;
+  }
+}
+
+// ---- host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// error codes of this file beside cudaError_t's
+constexpr int kNoEncode = 900, kEncodeFailed = 901;
+
+// (batch, rows, pitch) f32 with K = kdim valid channels a row, read in
+// boxes of 32 channels x 128 rows
+int tensor_map(CUtensorMap* map, const float* ptr, int kdim, int rows,
+               int batch, int pitch) {
+  const EncodeTiled encode = encode_fn();
+  if (encode == nullptr) return kNoEncode;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kdim),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {
+      static_cast<cuuint64_t>(pitch) * 4,
+      static_cast<cuuint64_t>(pitch) * 4 * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[3] = {kBK, kBM, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed;
+}
+
+// out (batch, M, ldo) = A (batch, M, lda)[:, :, :K] B (batch, ncols,
+// ldb)[:, :, :K]^T, lda and ldb multiples of 4 (of 32 where K is not a
+// multiple of 32, with zeros from K to the next multiple of 32)
+int gemm(int prec, const float* A, const float* B, float* out, int batch,
+         int M, int ncols, int K, int lda, int ldb, int ldo,
+         cudaStream_t stream) {
+  const dim3 grid((ncols + kBN - 1) / kBN, (M + kBM - 1) / kBM, batch);
+  if (prec == kTF32) {
+    CUtensorMap ma, mb;
+    int err = tensor_map(&ma, A, K, M, batch, lda);
+    if (err == 0) err = tensor_map(&mb, B, K, ncols, batch, ldb);
+    if (err != 0) return err;
+    static bool sized = false;
+    if (!sized) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          cx_gemm_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      sized = true;
+    }
+    cx_gemm_tf32<<<grid, kGemmThreads, kTmaSmem, stream>>>(ma, mb, out, M,
+                                                         ncols, K, ldo);
+  } else {
+    cx_gemm_f32<<<grid, kGemmThreads, 0, stream>>>(A, B, out, M, ncols, K, lda,
+                                                ldb, ldo);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int round_operand(const float* src, float* dst, size_t count,
+                  cudaStream_t stream) {
+  const size_t c4 = count / 4;
+  cx_round_copy<<<static_cast<unsigned>((c4 + 255) / 256), 256, 0, stream>>>(
+      src, dst, c4);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int transpose_operand(const float* src, float* dst, int n, int rows, int c,
+                      int ldr, int to_tf32, cudaStream_t stream) {
+  cx_transpose<<<dim3(ldr / kTile, c / kTile, n), dim3(kTile, 8), 0,
+                  stream>>>(src, dst, rows, c, ldr, to_tf32);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int col_chunks(int p) { return (p + kColRows - 1) / kColRows; }
+
+template <int MODE>
+int forward(const CxArgs& a, cudaStream_t stream) {
+  int err = 0;
+  if (MODE == kL1) {
+    cx_l1_fill<<<dim3((a.q + 255) / 256, a.p, a.n), 256, 0, stream>>>(a);
+    err = static_cast<int>(cudaGetLastError());
+  } else {
+    const float* x = a.x;
+    const float* y = a.y;
+    if (a.prec == kTF32) {
+      err = round_operand(a.x, a.xs, static_cast<size_t>(a.n) * a.p * a.c,
+                          stream);
+      if (err == 0)
+        err = round_operand(a.y, a.ys, static_cast<size_t>(a.n) * a.q * a.c,
+                            stream);
+      x = a.xs;
+      y = a.ys;
+    }
+    if (err == 0)
+      err = gemm(a.prec, x, y, a.s, a.n, a.p, a.q, a.c, a.c, a.c, a.ld,
+                 stream);
+  }
+  if (err != 0) return err;
+  cx_row_stats<MODE><<<(a.n * a.p + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
+                    0, stream>>>(a);
+  const int chunks = col_chunks(a.p);
+  cx_col_partial<MODE><<<dim3((a.q + kColThreads - 1) / kColThreads, chunks,
+                           a.n),
+                      kColThreads, 0, stream>>>(a);
+  const size_t nq = static_cast<size_t>(a.n) * a.q;
+  cx_col_merge<<<static_cast<unsigned>((nq + 255) / 256), 256, 0, stream>>>(
+      a, chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE>
-cudaError_t merge(const Chain& ch, cudaStream_t stream) {
-  if (ch.splits == 1) return cudaSuccess;
-  const int rows = ch.n * (MODE < 0 ? ch.q : ch.p);
-  merge_splits<MODE><<<(rows + 255) / 256, 256, 0, stream>>>(ch);
-  return cudaGetLastError();
-}
-
-template <int PREC>
-cudaError_t forward(const Chain& ch, cudaStream_t stream) {
-  const size_t smem = sweep_smem(ch.c);
-  const dim3 rows(tiles(ch.p), ch.n, ch.splits);
-  cudaError_t err = launch(row_sweep<kMin, PREC>, rows, smem, stream, ch);
-  if (err == cudaSuccess) err = merge<kMin>(ch, stream);
-  if (err == cudaSuccess)
-    err = launch(row_sweep<kSum, PREC>, rows, smem, stream, ch);
-  if (err == cudaSuccess) err = merge<kSum>(ch, stream);
-  if (err == cudaSuccess)
-    err = launch(col_max<PREC>, dim3(tiles(ch.q), ch.n, ch.splits), smem,
-                 stream, ch);
-  if (err == cudaSuccess) err = merge<-1>(ch, stream);
+int backward(const CxArgs& a, cudaStream_t stream) {
+  cx_row_terms<MODE><<<(a.n * a.p + kRowWarps - 1) / kRowWarps, 32 * kRowWarps,
+                    0, stream>>>(a);
+  cx_grad_tiles<MODE><<<dim3(a.ld / kTile, a.ldt / kTile, a.n), dim3(kTile, 8),
+                     0, stream>>>(a);
+  int err = static_cast<int>(cudaGetLastError());
+  if (MODE == kL1 || err != 0) return err;
+  const int to_tf32 = a.prec == kTF32;
+  if (a.dx) {
+    err = transpose_operand(a.y, a.ys, a.n, a.q, a.c, a.ld, to_tf32, stream);
+    if (err == 0)
+      err = gemm(a.prec, a.gx, a.ys, a.dx, a.n, a.p, a.c, a.q, a.ld, a.ld,
+                 a.c, stream);
+  }
+  if (err == 0 && a.dy) {
+    err = transpose_operand(a.x, a.xs, a.n, a.p, a.c, a.ldt, to_tf32,
+                            stream);
+    if (err == 0)
+      err = gemm(a.prec, a.gy, a.xs, a.dy, a.n, a.q, a.c, a.p, a.ldt, a.ldt,
+                 a.c, stream);
+  }
   return err;
-}
-
-template <bool OWN_ROWS, int PREC>
-cudaError_t product(const Chain& ch, cudaStream_t stream) {
-  const size_t smem = sweep_smem(ch.c) + kTile * kGld * sizeof(float);
-  const int chunks = (ch.c + kOutCols - 1) / kOutCols;
-  const int own_rows = OWN_ROWS ? ch.p : ch.q;
-  cudaError_t err = launch(grad_product<OWN_ROWS, PREC>,
-                           dim3(tiles(own_rows) * chunks, ch.n, ch.splits),
-                           smem, stream, ch, chunks);
-  if (err != cudaSuccess || ch.splits == 1) return err;
-  const size_t count = static_cast<size_t>(ch.n) * own_rows * ch.c;
-  sum_splits<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
-      ch.gpart, OWN_ROWS ? ch.dx : ch.dy, count, ch.splits);
-  return cudaGetLastError();
-}
-
-template <int PREC>
-cudaError_t backward(const Chain& ch, cudaStream_t stream) {
-  cudaError_t err = launch(row_sweep<kTerms, PREC>,
-                           dim3(tiles(ch.p), ch.n, ch.splits),
-                           sweep_smem(ch.c), stream, ch);
-  if (err == cudaSuccess) err = merge<kTerms>(ch, stream);
-  if (err == cudaSuccess && ch.dx) err = product<true, PREC>(ch, stream);
-  if (err == cudaSuccess && ch.dy) err = product<false, PREC>(ch, stream);
-  return err;
-}
-
-cudaError_t run(const Chain& ch, int prec, bool fwd, cudaStream_t stream) {
-  if (prec == kTF32)
-    return fwd ? forward<kTF32>(ch, stream) : backward<kTF32>(ch, stream);
-  return fwd ? forward<kF32>(ch, stream) : backward<kF32>(ch, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// z, k (N, Q) and m, l, s (N, P) of the chain; f may be null. prec:
-// 0 f32, 1 TF32. With splits > 1, part (splits, 3, N max(P, Q))
-// and partc (splits, N max(P, Q)) are scratch.
-int npp_cx_chain_fwd(const float* x, const float* y, const float* f,
-                     float* m, int* l, float* s, float* z,
-                     int* k, float* part, int* partc, int n, int p, int q,
-                     int c, int splits, float h, int prec, void* stream) {
-  const Chain ch{x, y, f, m, l, s, z, k, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, part, partc, nullptr, n, p, q, c, splits,
-                 h};
-  return static_cast<int>(run(ch, prec, true,
-                              static_cast<cudaStream_t>(stream)));
+// z, k (N, Q) and m, l, sum (N, P) of the chain into the args' buffers,
+// s kept in its scratch; mode 0 cosine, 1 l2, 2 l1; prec 0 f32, 1 TF32.
+int npp_cx_chain_fwd(const CxArgs* args, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (args->mode) {
+    case kCosine: return forward<kCosine>(*args, st);
+    case kL2: return forward<kL2>(*args, st);
+    default: return forward<kL1>(*args, st);
+  }
 }
 
-// dx (N, P, C) and dy (N, Q, C) from g = dL/dz (N, Q) and the forward's
-// m, l, s, z, k (the same prec and splits); a, bl (N, P) are scratch, and
-// with splits > 1 part, partc and gpart (splits, N max(P, Q) C); dx or dy
-// may be null (not wanted).
-int npp_cx_chain_bwd(const float* x, const float* y, const float* f,
-                     float* m, int* l, float* s, float* z,
-                     int* k, const float* g, float* a, float* bl, float* dx,
-                     float* dy, float* part, int* partc, float* gpart, int n,
-                     int p, int q, int c, int splits, float h, int prec,
-                     void* stream) {
-  const Chain ch{x, y, f, m, l, s, z, k, g, a, bl, dx, dy, part, partc,
-                 gpart, n, p, q, c, splits, h};
-  return static_cast<int>(run(ch, prec, false,
-                              static_cast<cudaStream_t>(stream)));
+// dx into args->dx and dy into args->dy (either null when not wanted;
+// l2 without its norm terms), or for l1 only the partial sums rsum, csum,
+// from g and the forward's s, m, l, sum, z, k.
+int npp_cx_chain_bwd(const CxArgs* args, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (args->mode) {
+    case kCosine: return backward<kCosine>(*args, st);
+    case kL2: return backward<kL2>(*args, st);
+    default: return backward<kL1>(*args, st);
+  }
 }
 
 }  // extern "C"

@@ -9,8 +9,8 @@ the search's eval of each candidate). The cosine path is the mean shift
 and normalisation here, then the similarity chain up to the per-target
 column max in `kernels/cx_chain.py::cx_colmax` (K3, csrc/cx_chain.cu, on
 the card; its plain version on the CPU), then the mean and log here.
-The 'l1' and 'l2' forms, which no entry point reaches, keep the plain
-chain on every device (ROADMAP.md lists them as K3's remaining forms).
+The 'l2' form hands the raw rows to `cx_colmax_l2` and the 'l1' form the
+channel sums to `cx_colmax_l1`, K3's other two modes.
 """
 from __future__ import annotations
 
@@ -20,7 +20,9 @@ import numpy as np
 import torch
 
 from ..kernels.cx_chain import (colmax_of_distance, compute_cx,  # noqa: F401
-                                compute_relative_distance, cx_colmax)
+                                compute_relative_distance, cx_colmax,
+                                cx_colmax_l1, cx_colmax_l2, l1_distance_sums,
+                                l2_distance_rows)
 from ..nn.features import (VGG19_BLOCKS, VGG19_CX_TAP, VGGFeatures,
                            imagenet_normalize, vgg_conv_shapes)
 from ..nn.pretrained import load_tower_params
@@ -73,22 +75,25 @@ def compute_cosine_distance(x: torch.Tensor, y: torch.Tensor,
 def compute_l1_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """|sum_c (x(p) - y(q))| (reference: functional.py:166-177: the channel
     sum is taken before the abs, with no channel normalisation), NHWC."""
-    n, h, w, c = x.shape
-    xs = torch.sum(x.reshape(n, h * w, c), dim=-1)   # (N, P)
-    ys = torch.sum(y.reshape(n, h * w, c), dim=-1)
-    return torch.clamp(torch.abs(xs[:, :, None] - ys[:, None, :]), min=0.0)
+    return l1_distance_sums(*_channel_sums(x, y))
 
 
 def compute_l2_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Squared euclidean distances (reference: functional.py:166-186),
     NHWC."""
+    return l2_distance_rows(*_rows(x, y))
+
+
+def _rows(x: torch.Tensor, y: torch.Tensor):
+    """NHWC -> (N, HW, C) rows."""
     n, h, w, c = x.shape
-    xv = x.reshape(n, h * w, c)
-    yv = y.reshape(n, h * w, c)
-    x_s = torch.sum(xv ** 2, dim=-1)  # (N, P)
-    y_s = torch.sum(yv ** 2, dim=-1)
-    ab = torch.bmm(xv, yv.transpose(1, 2))
-    return torch.clamp(y_s[:, None, :] - 2 * ab + x_s[:, :, None], min=0.0)
+    return x.reshape(n, h * w, c), y.reshape(n, h * w, c)
+
+
+def _channel_sums(x: torch.Tensor, y: torch.Tensor):
+    """NHWC -> (N, HW) sums over the channels."""
+    xv, yv = _rows(x, y)
+    return torch.sum(xv, dim=-1), torch.sum(yv, dim=-1)
 
 
 def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
@@ -118,12 +123,10 @@ def contextual_loss(x: torch.Tensor, y: torch.Tensor, band_width: float = 0.5,
     if loss_type == 'cosine':
         xn, yn = normalized_features(x, y, feat_valid, per_sample, groups)
         cx = cx_colmax(xn, yn, band_width, fv)                # (N, Q)
-    elif loss_type in ('l1', 'l2'):
-        # no entry point reaches these forms: the plain chain on every
-        # device, K3's remaining forms (ROADMAP.md)
-        dist_raw = (compute_l1_distance if loss_type == 'l1'
-                    else compute_l2_distance)(x, y)
-        cx = colmax_of_distance(dist_raw, band_width, fv)
+    elif loss_type == 'l2':
+        cx = cx_colmax_l2(*_rows(x, y), band_width, fv)
+    elif loss_type == 'l1':
+        cx = cx_colmax_l1(*_channel_sums(x, y), band_width, fv)
     else:
         raise ValueError(f'unsupported loss_type {loss_type!r}')
     if fv is not None:

@@ -39,8 +39,8 @@ GROUPS = (  # first match wins; names as the profiler reports kernels
     ('K4 robust_rho', ('rho_fwd_group_kernel', 'rho_bwd_kernel',
                        'rho_bwd_finish', 'rho_fwd_wide_finish',
                        'rho_bwd_wide_kernel')),
-    ('K3 cx_chain', ('row_sweep', 'col_max', 'grad_product', 'merge_splits',
-                     'sum_splits')),
+    ('K3 cx_chain', ('cx_gemm', 'cx_row_', 'cx_col_', 'cx_grad_',
+                     'cx_transpose', 'cx_round_copy', 'cx_l1_fill')),
     # cuDNN's tensor-core (TF32) convolutions add layout transforms, its
     # FFT convolutions fft2d_* kernels
     ('conv', ('conv', 'cudnn', 'implicit', 'winograd', 'fprop', 'dgrad',

@@ -197,27 +197,187 @@ def test_cx_colmax_rejects_mixed_devices_and_bad_shapes():
         cx_chain.cx_colmax(xn, torch.zeros(2, 9, 32, device='meta'), 0.5)
 
 
-def test_splits_follow_the_blocks_in_flight():
-    """The flagship fit (6 x 1,600) splits its streamed tiles four ways on
-    an H100's 132 SMs; the search's evaluation (3 x 12,288) and a small
-    patch's 256 positions do not split."""
-    assert cx_chain.splits_for(6, 1600, 1600, 132) == 4
-    assert cx_chain.splits_for(18, 1600, 1600, 132) == 2
-    assert cx_chain.splits_for(3, 12288, 12288, 132) == 1
-    assert cx_chain.splits_for(6, 256, 256, 132) == 2
-    assert cx_chain.splits_for(1, 40, 40, 132) == 1
-    # 25 tiles: six splits of five would leave the sixth without a tile
-    assert cx_chain.splits_for(6, 784, 784, 132) == 5
+# the kernel's geometry at every path's shape (N, P = Q, C): the scratch
+# pitches (Q and P rounded up to 32), the column pass's chunks of 64 rows,
+# the forward product's 128 x 128 tiles and the bytes of s
+PLANS = {
+    'fit': ((6, 1600, 256), 1600, 25, 6 * 13 * 13, 61_440_000),
+    'batched': ((18, 1600, 256), 1600, 25, 18 * 13 * 13, 184_320_000),
+    'patch64': ((6, 256, 256), 256, 4, 6 * 2 * 2, 1_572_864),
+    'search': ((3, 12288, 256), 12288, 192, 3 * 96 * 96, 1_811_939_328),
+    'p784': ((6, 784, 256), 800, 13, 6 * 7 * 7, 15_052_800),
+    'p1601': ((2, 1601, 256), 1632, 26, 2 * 13 * 13, 20_902_656),
+}
 
 
-@pytest.mark.parametrize('n', [1, 2, 6, 8, 18])
-def test_no_split_is_left_without_a_tile(n):
-    """Every split of either sweep gets at least one streamed tile, as
-    csrc/cx_chain.cu's split_range divides them, for P, Q up to 1,600."""
-    for p in range(1, 1601, 7):
-        for q in (p, p + 40, max(1, p - 33)):
-            splits = cx_chain.splits_for(n, p, q, 132)
-            for rows in (p, q):
-                nt = -(-rows // cx_chain.TILE)
-                per = -(-nt // splits)
-                assert (splits - 1) * per < nt, (n, p, q, splits)
+@pytest.mark.parametrize('path', list(PLANS))
+def test_plan_at_the_paths_shapes(path):
+    (n, p, c), ld, chunks, tiles, s_bytes = PLANS[path]
+    pl = cx_chain.plan(n, p, p, c)
+    assert (pl.ld, pl.ldt, pl.chunks) == (ld, ld, chunks)
+    assert pl.product_tiles(p, p) == tiles
+    fwd = cx_chain.buffer_bytes(pl.forward_buffers('cosine',
+                                                   cx_chain.PREC_TF32))
+    assert fwd['s'] == s_bytes == 4 * n * p * ld
+    assert fwd['cmax'] == fwd['ccnt'] == 4 * chunks * n * p
+    assert fwd['xs'] == fwd['ys'] == 4 * n * p * c
+    # f32 and l1 take no rounded copies
+    assert 'xs' not in pl.forward_buffers('cosine', cx_chain.PREC_F32)
+    assert 'xs' not in pl.forward_buffers('l1', cx_chain.PREC_TF32)
+    # the backward's products: dxn over (P, C) tiles with K = Q
+    assert pl.product_tiles(p, c) == n * -(-p // 128) * -(-c // 128)
+    bwd = cx_chain.buffer_bytes(pl.backward_buffers('cosine', True, True))
+    assert bwd['gx'] == bwd['gy'] == s_bytes
+    assert bwd['ys'] == bwd['xs'] == 4 * n * c * ld
+    # a fit that wants dxn alone allocates no G^T, no x^T and no dyn
+    assert set(pl.backward_buffers('cosine', True, False)) == {
+        'terms', 'gx', 'ys', 'dx'}
+    assert set(pl.backward_buffers('l1', True, True)) == {'terms', 'rsum',
+                                                          'csum'}
+    assert set(pl.backward_buffers('l2', True, True)) >= {'gx', 'gy', 'rsum',
+                                                          'csum'}
+
+
+class _FakeCard:
+    """K3's launchers replaced by a model of their contract in PyTorch on
+    the CPU, so that the wrapper's autograd Function, its routing and its
+    l2 / l1 algebra run here: the forward returns z and Saved with s (the
+    product, or l1's difference of the sums); the backward works from the
+    saved s alone (never from x and y's product) and returns the kernel's
+    products G y and G^T x and its partial sums. Records each call."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        monkeypatch.setattr(cx_chain, '_on_card', lambda *t: True)
+        monkeypatch.setattr(cx_chain, 'cx_fwd_launch', self.fwd)
+        monkeypatch.setattr(cx_chain, 'cx_bwd_launch', self.bwd)
+        for mode in cx_chain.PLAIN:
+            monkeypatch.setitem(cx_chain.PLAIN, mode, self.no_plain)
+
+    @staticmethod
+    def no_plain(*args):
+        raise AssertionError('a card tensor reached the plain chain')
+
+    @staticmethod
+    def chain(s, xx, yy, fv, band_width, mode):
+        if mode == 'cosine':
+            d = 1.0 - torch.clamp(s, 0.0, 1.0)
+        elif mode == 'l2':
+            d = torch.clamp(yy[:, None, :] - 2 * s + xx[:, :, None], min=0.0)
+        else:
+            d = torch.clamp(torch.abs(s), min=0.0)
+        return cx_chain.colmax_of_distance(d, band_width, fv)
+
+    def fwd(self, x, y, fv, band_width, prec, mode='cosine', xx=None,
+            yy=None, keep=True):
+        self.calls.append(('fwd', mode, keep))
+        s = x[:, :, None] - y[:, None, :] if mode == 'l1' else \
+            torch.bmm(x, y.transpose(1, 2))
+        z = self.chain(s, xx, yy, fv, band_width, mode)
+        n, p, q = s.shape
+        stats = torch.zeros(n, p)
+        ints = torch.zeros(n, p, dtype=torch.int32)
+        return z, (cx_chain.Saved(s, stats, ints, stats, ints)
+                   if keep else None)
+
+    def bwd(self, g, x, y, fv, saved, z, band_width, prec, mode='cosine',
+            xx=None, yy=None, need_dx=True, need_dy=True):
+        self.calls.append(('bwd', mode, need_dx, need_dy))
+        with torch.enable_grad():
+            s = saved.s.detach().requires_grad_()
+            gs, = torch.autograd.grad(
+                self.chain(s, xx, yy, fv, band_width, mode), s, g)
+        if mode == 'l1':
+            return None, None, -gs.sum(2), -gs.sum(1)
+        dx = torch.bmm(gs, y) if need_dx else None
+        dy = torch.bmm(gs.transpose(1, 2), x) if need_dy else None
+        sums = (gs.sum(2), gs.sum(1)) if mode == 'l2' else (None, None)
+        return (dx, dy) + sums
+
+
+@pytest.mark.parametrize('loss_type', ['cosine', 'l2', 'l1'])
+def test_each_loss_type_takes_its_kernel_form_on_the_card(monkeypatch,
+                                                          loss_type):
+    """On card tensors (the launchers faked on the CPU) each loss_type
+    launches its own form both ways, never the plain chain, and the
+    wrapper's gradient (l2's norm terms, l1's sums and signs) matches
+    npp_tpu's with a mask."""
+    card = _FakeCard(monkeypatch)
+    x, y = (_inputs if loss_type == 'cosine' else _normal_inputs)(21, c=32)
+    fv = _mask(21, *x.shape[:3])
+    _compare(x, y, dict(loss_type=loss_type, feat_valid=fv))
+    assert [c[:2] for c in card.calls] == [('fwd', loss_type),
+                                           ('bwd', loss_type)]
+    assert card.calls[0][2] is True and card.calls[1][2:] == (True, True)
+
+
+@pytest.mark.parametrize('loss_type', ['cosine', 'l2', 'l1'])
+def test_each_loss_type_takes_the_plain_chain_on_the_cpu(loss_type):
+    reset_launches()
+    x, y = _inputs(22, n=2, h=6, w=6, c=16)
+    xt = torch.tensor(x, requires_grad=True)
+    TC.contextual_loss(xt, torch.tensor(y), loss_type=loss_type).backward()
+    assert xt.grad is not None
+    assert not any(v for k, v in launch_counts().items()
+                   if k.startswith('cx_chain'))
+
+
+def test_the_forward_keeps_s_only_when_a_gradient_is_wanted(monkeypatch):
+    """s (the (N, P, Q) scratch) is kept for the backward only when x or y
+    needs a gradient and grad mode is on: the search's eval (no_grad)
+    keeps nothing; a fit that wants dxn alone gets no dyn product."""
+    card = _FakeCard(monkeypatch)
+    x, y = (torch.as_tensor(t) for t in _inputs(23, n=2, h=6, w=6))
+    xn, yn = TC.normalized_features(x, y)
+    cx_chain.cx_colmax(xn, yn, 0.5)
+    with torch.no_grad():
+        cx_chain.cx_colmax(xn.requires_grad_(), yn, 0.5)
+    z = cx_chain.cx_colmax(xn, yn, 0.5)
+    assert [c[2] for c in card.calls] == [False, False, True]
+    z.sum().backward()
+    assert card.calls[-1] == ('bwd', 'cosine', True, False)
+    assert xn.grad is not None
+
+
+def test_card_forms_check_their_inputs(monkeypatch):
+    _FakeCard(monkeypatch)
+    x = torch.zeros(2, 9, 16)
+    with pytest.raises(ValueError):   # C a multiple of 32
+        cx_chain.cx_colmax_l2(x, x, 0.5)
+    with pytest.raises(ValueError):   # l1 takes the (N, P) sums
+        cx_chain.cx_colmax_l1(x, x, 0.5)
+    with pytest.raises(ValueError):   # the mask needs P = Q
+        cx_chain.cx_colmax_l1(torch.zeros(2, 9), torch.zeros(2, 8), 0.5,
+                              torch.ones(2, 9))
+    rows = torch.zeros(2 * 9 * 32 + 1)[1:].view(2, 9, 32)
+    with pytest.raises(ValueError):   # 16-byte loads need aligned rows
+        cx_chain.cx_colmax(rows, torch.zeros(2, 9, 32), 0.5)
+
+
+def _normal_inputs(seed, n=3, h=10, w=10, c=32):
+    """Independent normal x and y, as tests/test_torch_functions.py makes
+    them for the l1 and l2 forms: the relative distance divides by a row's
+    least distance, which x near y (_inputs) makes small enough that the
+    two packages' sums in their own order differ by 1e-3 there."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, h, w, c).astype(np.float32),
+            rng.randn(n, h, w, c).astype(np.float32))
+
+
+@pytest.mark.parametrize('loss_type', ['l1', 'l2'])
+@pytest.mark.parametrize('masked', [False, True])
+def test_l1_l2_forms_match_npp_tpu(loss_type, masked):
+    """The l1 and l2 forms' plain chains (cx_colmax_l1_plain on the
+    channel sums, cx_colmax_l2_plain on the raw rows) against npp_tpu's
+    contextual_loss, value and gradients in x and y; masked with one
+    sample all masked. l1 on 6 x 6 maps, as test_torch_functions.py's 5 x 6:
+    its distance is a difference of two channel sums, which the packages
+    add in their own order, and the relative distance divides that
+    rounding by a row's least distance, which shrinks as the map grows."""
+    hw = 6 if loss_type == 'l1' else 8
+    x, y = _normal_inputs(31 if loss_type == 'l1' else 32, n=3, h=hw, w=hw,
+                          c=16)
+    kw = dict(loss_type=loss_type)
+    if masked:
+        kw['feat_valid'] = _mask(33, 3, hw, hw, all_masked=2)
+    _compare(x, y, kw)

@@ -320,19 +320,46 @@ def _k3_rows(gen, n, p, c, dup=0, dev='cuda'):
     return xn.to(dev), yn.to(dev)
 
 
+def _k3_run(fn, x, y, fv, g, tf32):
+    """z and its gradients in x and y of fn, with TF32 on or off."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        a, b = (t.clone().requires_grad_() for t in (x, y))
+        z = fn(a, b, 0.5, fv)
+        (z * g).sum().backward()
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    return z.detach(), a.grad, b.grad
+
+
+def _k3_assert_close(fn, plain, x, y, fv, g, tf32, bar=None):
+    """fn against plain on the same card in the same precision: within
+    1e-4 of the largest value in f32, 2e-3 with TF32 (the two products
+    round differently in TF32)."""
+    bar = bar or (2e-3 if tf32 else 1e-4)
+    for got, want in zip(_k3_run(fn, x, y, fv, g, tf32),
+                         _k3_run(plain, x, y, fv, g, tf32)):
+        assert torch.isfinite(got).all()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= bar, err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('tf32', [False, True], ids=['f32', 'tf32'])
-@pytest.mark.parametrize('case', ['ragged', 'ties', 'masked', 'splits'])
+@pytest.mark.parametrize('case', ['ragged', 'ties', 'masked', 'p784',
+                                  'p1601'])
 def test_k3_forward_and_backward_match_plain_on_the_card(case, tf32):
-    """z and its gradients in xn and yn against the plain chain on the
-    same card, in the same precision: within 1e-4 of the largest value in
-    f32, 2e-3 with TF32 (the two products round differently in TF32).
+    """z and its gradients in xn and yn against the plain chain.
     'ties' has exact duplicate rows and columns (tied maxima and minima),
-    'masked' one sample with every position masked too, 'splits' 6 x 784
-    (25 tiles a row, five blocks sharing them)."""
+    'masked' one sample with every position masked too, 'p784' and
+    'p1601' ragged edges of the 128-row product tiles and of the 32-wide
+    pitches at the paths' widths."""
     dev = _card()
     gen = torch.Generator().manual_seed(7)
-    n, p = {'ragged': (2, 100), 'splits': (6, 784)}.get(case, (3, 144))
+    n, p = {'ragged': (2, 100), 'p784': (6, 784),
+            'p1601': (2, 1601)}.get(case, (3, 144))
     xn, yn = _k3_rows(gen, n, p, 256,
                       dup=40 if case in ('ties', 'masked') else 0)
     fv = None
@@ -340,22 +367,80 @@ def test_k3_forward_and_backward_match_plain_on_the_card(case, tf32):
         fv = (torch.rand(n, p, generator=gen) > 0.3).float().to(dev)
         fv[1] = 0.0
     g = (torch.rand(n, p, generator=gen) + 0.5).to(dev)
-    bar = 2e-3 if tf32 else 1e-4
-    outs = []
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    try:
-        before = launch_counts().get('cx_chain_bwd', 0)
-        for fn in (cx_chain.cx_colmax, cx_chain.cx_colmax_plain):
-            a, b = (t.clone().requires_grad_() for t in (xn, yn))
-            z = fn(a, b, 0.5, fv)
-            (z * g).sum().backward()
-            outs.append((z.detach(), a.grad, b.grad))
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = old
+    before = launch_counts().get('cx_chain_bwd', 0)
+    _k3_assert_close(cx_chain.cx_colmax, cx_chain.cx_colmax_plain, xn, yn,
+                     fv, g, tf32)
     assert launch_counts()['cx_chain_bwd'] == before + 1
-    for got, want in zip(*outs):
-        assert torch.isfinite(got).all()
-        err = float((got - want).abs().max() / want.abs().max())
-        assert err <= bar, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c', [64, 128, 512])
+def test_k3_other_channel_counts_match_plain_on_the_card(c):
+    """C = 64, 128 (narrower than a product tile's 128 columns of dxn) and
+    512 (the widest K3 takes), in f32 and with TF32."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(c)
+    xn, yn = _k3_rows(gen, 2, 200, c)
+    g = (torch.rand(2, 200, generator=gen) + 0.5).to(dev)
+    for tf32 in (False, True):
+        _k3_assert_close(cx_chain.cx_colmax, cx_chain.cx_colmax_plain, xn,
+                         yn, None, g, tf32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('tf32', [False, True], ids=['f32', 'tf32'])
+def test_k3_two_launches_are_bit_equal_on_the_card(tf32):
+    """No atomics: z and both gradients repeat bit for bit, also with ties
+    and a mask."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(11)
+    xn, yn = _k3_rows(gen, 6, 300, 256, dup=30)
+    fv = (torch.rand(6, 300, generator=gen) > 0.3).float().to(dev)
+    g = (torch.rand(6, 300, generator=gen) + 0.5).to(dev)
+    for mask in (None, fv):
+        one = _k3_run(cx_chain.cx_colmax, xn, yn, mask, g, tf32)
+        two = _k3_run(cx_chain.cx_colmax, xn, yn, mask, g, tf32)
+        for a, b in zip(one, two):
+            assert torch.equal(a, b)
+
+
+def _k3_raw(gen, n, p, c):
+    """Raw relu features for the l2 and l1 forms: y, and x near y."""
+    y = torch.relu(torch.randn(n, p, c, generator=gen))
+    return (y + 0.5 * torch.randn(n, p, c, generator=gen)).cuda(), y.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('masked', [False, True])
+def test_k3_l2_form_matches_plain_on_the_card(masked):
+    """The l2 form (s from the product, d from the rows' norms, the norm
+    terms of the gradient) against its plain chain in f32."""
+    _card()
+    gen = torch.Generator().manual_seed(13)
+    x, y = _k3_raw(gen, 3, 150, 256)
+    fv = (torch.rand(3, 150, generator=gen) > 0.3).float().cuda() \
+        if masked else None
+    g = (torch.rand(3, 150, generator=gen) + 0.5).cuda()
+    before = launch_counts().get('cx_chain_l2_bwd', 0)
+    _k3_assert_close(cx_chain.cx_colmax_l2, cx_chain.cx_colmax_l2_plain, x,
+                     y, fv, g, False)
+    assert launch_counts()['cx_chain_l2_bwd'] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('masked', [False, True])
+def test_k3_l1_form_matches_plain_on_the_card(masked):
+    """The l1 form on the channel sums (no product), with TF32 on too: its
+    chain has no product, so both run in f32."""
+    _card()
+    gen = torch.Generator().manual_seed(17)
+    x, y = _k3_raw(gen, 3, 150, 64)
+    xs, ys = x.sum(-1), y.sum(-1)
+    fv = (torch.rand(3, 150, generator=gen) > 0.3).float().cuda() \
+        if masked else None
+    g = (torch.rand(3, 150, generator=gen) + 0.5).cuda()
+    before = launch_counts().get('cx_chain_l1_bwd', 0)
+    for tf32 in (False, True):
+        _k3_assert_close(cx_chain.cx_colmax_l1, cx_chain.cx_colmax_l1_plain,
+                         xs, ys, fv, g, tf32, bar=1e-4)
+    assert launch_counts()['cx_chain_l1_bwd'] == before + 2
