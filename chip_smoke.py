@@ -143,7 +143,14 @@ Phases, in order; any failure exits non-zero:
     must give phase 15's records' keys and top-3. Per rank: the wall,
     the steady ms/step, the peak memory and K1's to K4's launches,
     each count set to 0 just before and read just after;
-18. one JSON line of kernels (with the search's, the remapping's, the
+18. bench_torch.py with NPP_BENCH_BATCHED=0 and NPP_BENCH_LATENCY=0 in a
+    subprocess: its last line holds bench.py's keys, 0 < mfu < 1, value > 0
+    and a finite vs_baseline, and its primary launched K1 to K4;
+19. scripts/torch_eval_remapping.py --n-synth 1 --iters-scale 0.05 in a
+    subprocess: its record holds scripts/eval_remapping.py's keys with
+    finite values and that script's classical baselines, and the summary
+    line follows;
+20. one JSON line of kernels (with the search's, the remapping's, the
     warp's, the segmentation's and the batched paths' shapes and
     launches, the multi-card ranks' launches by kernel, K3's launches by
     path), the paths'
@@ -159,8 +166,9 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-MEM_BW = 3.35e12        # H100 SXM HBM3, bytes/s (NVIDIA data sheet)
-F32_PEAK = 67e12        # H100 SXM float32 outside the tensor cores, FLOP/s
+# the card's published peaks (npp_tpu_torch/device.py::card_peaks), set
+# by main() from the card's name: every bound below is taken against them
+PEAKS = None
 
 
 def fail(msg):
@@ -175,7 +183,8 @@ def log(msg):
 def bound_ms(n_bytes, n_ops):
     """The least time for the work: bytes over the memory rate or f32
     operations over the f32 peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / MEM_BW, n_ops / F32_PEAK
+    t_bytes = n_bytes / PEAKS.hbm_bytes_per_s
+    t_ops = n_ops / PEAKS.f32
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -291,10 +300,9 @@ def phase_device():
         fail(f'no npp_tpu_torch package beside {__file__}: run it from a '
              'checkout of the repository')
     sys.path.insert(0, ROOT)
+    from npp_tpu_torch.device import smi_line
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(f'device {name}; torch {torch.__version__}, CUDA {torch.version.cuda}')
     return name, smi
 
@@ -2176,12 +2184,12 @@ def top3(odgt):
                                   'selected_periods')]
 
 
-def _run(label, cmd, timeout=900):
-    """A subprocess of this checkout's Python on the card; fails on a
-    non-zero exit."""
+def _run(label, cmd, timeout=900, env=None):
+    """A subprocess of this checkout's Python on the card (with `env`'s
+    variables added); fails on a non-zero exit."""
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
                           timeout=timeout)
     wall = time.time() - t0
     if proc.returncode != 0:
@@ -2277,6 +2285,84 @@ def drive_entry_points():
                 suite_fit=summary.get('fit_batched'),
                 suite_search=summary.get('search_batched'),
                 quality=qrec, quality_options=qsum['options'])
+
+
+# ---- the repository's harness on the card: bench_torch.py and the
+# square-wave remapping evaluation
+
+MAIN_KERNELS = ('periodic_embed', 'bias_snake_fwd', 'bias_snake_bwd',
+                'robust_rho_fwd', 'robust_rho_bwd', 'cx_chain_fwd',
+                'cx_chain_bwd')
+# scripts/eval_remapping.py's classical baselines on synth_blur0 (seed 300),
+# deterministic numpy: its printed digits
+REMAP_BASELINES = {'psnr_blur_identity': 22.3, 'psnr_blur_unsharp_1.5': 25.95,
+                   'psnr_blur_unsharp_3': 27.7}
+
+
+def drive_bench():
+    """bench_torch.py in a subprocess without its batched and latency
+    segments (phase 13 drives the batched path): its last line must hold
+    bench.py's keys with 0 < mfu < 1, value > 0 and a finite vs_baseline,
+    and its primary must have launched every kernel of the main path."""
+    import numpy as np
+    from bench_torch import METRIC_KEYS
+    proc, wall = _run('bench_torch.py', [
+        sys.executable, os.path.join(ROOT, 'bench_torch.py')],
+        env={'NPP_BENCH_BATCHED': '0', 'NPP_BENCH_LATENCY': '0'})
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    diag = json.loads([ln for ln in proc.stderr.splitlines()
+                       if ln.startswith('{')][-1])
+    log(f'bench_torch.py: {json.dumps(line)}')
+    launches = diag['primary']['launches']
+    if set(line) != set(METRIC_KEYS) or line['metric'] != \
+            'completion_fit_iters_per_sec' or not line['value'] > 0 or \
+            not 0 < line['mfu'] < 1 or \
+            not np.isfinite(line['vs_baseline'] or np.nan):
+        fail(f'bench_torch.py line {line}')
+    missing = [k for k in MAIN_KERNELS if not launches.get(k)]
+    if missing:
+        fail(f'bench_torch.py primary launched no {missing}: {launches}')
+    log(f"bench_torch.py: block ms {diag['primary']['block_ms']}, control "
+        f"{diag['control']['iters_per_sec']:.3f} it/s, peak "
+        f"{diag['primary']['peak_memory_bytes']} bytes")
+    return dict(line=line, wall_s=wall, block_ms=diag['primary']['block_ms'],
+                launches=launches, control=diag['control'],
+                flops_per_step=diag['flops_per_step'])
+
+
+def drive_remap_eval():
+    """scripts/torch_eval_remapping.py --n-synth 1 --iters-scale 0.05: the
+    record holds eval_remapping.py's keys with finite PSNRs and LPIPS, its
+    baselines equal that script's record, and the summary line follows."""
+    import shutil
+    import numpy as np
+    out = os.path.join(ROOT, 'npp_tpu_torch', 'build', 'smoke_remap_eval')
+    shutil.rmtree(out, ignore_errors=True)
+    proc, wall = _run('torch_eval_remapping.py', [
+        sys.executable, os.path.join(ROOT, 'scripts',
+                                     'torch_eval_remapping.py'),
+        '--n-synth', '1', '--iters-scale', '0.05', '--out', out])
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith('{')]
+    rec, summary = lines[-2], lines[-1]
+    keys = {'example', 'blur_frac'} | {
+        f'{m}_blur_{b}' for m in ('psnr', 'lpips')
+        for b in ('identity', 'unsharp_1.5', 'unsharp_3')} | {
+        f'{k}_ref' for k in ('psnr_blur_ours', 'lpips_blur_ours',
+                             'psnr_clear_ours', 'iters_per_sec')}
+    finite = all(np.isfinite(v) for k, v in rec.items() if k != 'example')
+    if set(rec) != keys or not finite or set(summary.get('summary', ())) != \
+            {'beats_best_baseline_psnr', 'beats_best_baseline_lpips', 'total'}:
+        fail(f'torch_eval_remapping.py lines {lines[-2:]}')
+    if any(rec[k] != v for k, v in REMAP_BASELINES.items()):
+        fail(f'torch_eval_remapping.py baselines {rec} against '
+             f'eval_remapping.py\'s {REMAP_BASELINES}')
+    runs = json.loads([ln for ln in proc.stderr.splitlines()
+                       if ln.startswith('{')][-1])
+    log(f'torch_eval_remapping.py: {json.dumps(rec)}; searches '
+        f'{runs["searches"]}; fits {runs["fits"]}')
+    return dict(record=rec, summary=summary['summary'], wall_s=wall,
+                searches=runs['searches'], fits=runs['fits'])
 
 
 # ---- the seam slice: the inpainting library, LPIPS-squeeze's K4 shapes,
@@ -2570,7 +2656,6 @@ K3_SRC = 'npp_tpu_torch/csrc/cx_chain.cu'
 K3_REPLACES = ('npp_tpu/losses/contextual.py:21-130 (cosine distance, '
                'relative distance, exp / row normalisation, masked column '
                'max{}; XLA-fused, no pl.pallas_call in the repo)')
-TF32_PEAK = 495e12      # H100 SXM TF32 tensor cores, dense, FLOP/s
 K3_F64_BAR = 1e-4       # K3's z against float64, relative to its largest
 K3_GRAD_BAR = 1e-3      # K3's gradients, relative to the largest
 K3_TF32_BAR = 2e-3      # K3 against the plain chain, both with TF32 (each
@@ -2609,8 +2694,8 @@ def k3_bound_ms(n, p, c, kind, tf32, masked=False):
         ops = 2 * n * p * p * c
     else:
         n_bytes, ops = (4 * n * p * c + n * p) * 4, 4 * n * p * p * c
-    t_bytes = n_bytes / MEM_BW
-    t_ops = ops / (TF32_PEAK if tf32 else F32_PEAK)
+    t_bytes = n_bytes / PEAKS.hbm_bytes_per_s
+    t_ops = ops / (PEAKS.tf32 if tf32 else PEAKS.f32)
     return 1e3 * max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops
                                        else 'operations')
 
@@ -2765,7 +2850,8 @@ def k3_form_errs(gen, mode, n, p, c):
         out['bound_ms'], out['bound_by'] = k3_bound_ms(n, p, c, 'fwd', False,
                                                        masked=True)
     else:   # no product: the two channel sums and the mask in, z out
-        out['bound_ms'], out['bound_by'] = 1e3 * 16 * n * p / MEM_BW, 'bytes'
+        out['bound_ms'], out['bound_by'] = (1e3 * 16 * n * p /
+                                            PEAKS.hbm_bytes_per_s), 'bytes'
     return out
 
 
@@ -3191,10 +3277,12 @@ def drive_multicard(batched_params, batched_ms, suite, entry):
 
 
 def main():
+    global PEAKS
     t0 = time.time()
     name, smi = phase_device()
     import torch
-    from npp_tpu_torch.device import matmul_precision
+    from npp_tpu_torch.device import card_peaks, matmul_precision
+    PEAKS = card_peaks(name)
     wgmma = phase_build()
     gen = torch.Generator().manual_seed(0)
     with matmul_precision('float32'):
@@ -3284,11 +3372,7 @@ def main():
         f'{chained.selected_angles} / {chained.selected_periods}, patch size '
         f'{chained.patch_size}')
     _, chained_history, _, chained_final = drive(
-        'search-chained path', ['periodic_embed', 'bias_snake_fwd',
-                                'bias_snake_bwd', 'robust_rho_fwd',
-                                'robust_rho_bwd', 'cx_chain_fwd',
-                                'cx_chain_bwd'],
-        data=chained, N_iters=11)
+        'search-chained path', list(MAIN_KERNELS), data=chained, N_iters=11)
     log("segmentation path: the default SegmentationConfig widths, TF32 in "
         "the steps and the render, the refinement's spatial LPIPS-alex in "
         "full f32")
@@ -3313,6 +3397,10 @@ def main():
     multicard = drive_multicard(batched_params,
                                 batched['batched']['ms_per_step_steady'],
                                 suite, entry)
+    log('harness: bench_torch.py (primary, late and control) and '
+        'scripts/torch_eval_remapping.py in subprocesses on the card')
+    bench = drive_bench()
+    remap_eval = drive_remap_eval()
     for k in kernels:
         k['launches'] = (bf16_launches if k['name'] == bf16_name else
                          squeeze_launches if k['name'] in on_squeeze else
@@ -3364,6 +3452,7 @@ def main():
                       'segmentation': seg, 'slic': slic,
                       'batched': batched, 'suite_search': suite,
                       'entry_points': entry, 'multicard': multicard,
+                      'bench': bench, 'remap_eval': remap_eval,
                       'search': search,
                       'search_chained': {
                           'patch_size': chained.patch_size,

@@ -1,5 +1,6 @@
-"""Device resolution for the port's entry points, and the matmul precision
-scope of the fit.
+"""Device resolution for the port's entry points, the matmul precision
+scope of the fit, and the cards' published peaks that bounds and MFU are
+taken against.
 
 Entry points run on the card unless the caller asks for the CPU. With no
 card and no explicit CPU request they raise: a silent CPU fallback would
@@ -8,7 +9,9 @@ report CPU results as if they came from the card.
 from __future__ import annotations
 
 import contextlib
-from typing import Iterator, Optional, Union
+import dataclasses
+import subprocess
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -47,6 +50,54 @@ def allows_tf32(name: str) -> bool:
         raise ValueError(
             f'matmul_precision {name!r} is not one of '
             f'{sorted(TF32_BY_PRECISION)}') from None
+
+
+@dataclasses.dataclass(frozen=True)
+class CardPeaks:
+    """A card's published peaks: memory bytes/s and dense FLOP/s."""
+
+    hbm_bytes_per_s: float
+    tf32: float           # TF32 on the tensor cores
+    bf16: float           # bf16 on the tensor cores
+    f32: float            # float32 outside the tensor cores
+
+
+# keyed by torch.cuda.get_device_name; NVIDIA's data sheet, SXM part,
+# dense rates at the full 700 W power limit
+CARD_PEAKS: Dict[str, CardPeaks] = {
+    'NVIDIA H100 80GB HBM3': CardPeaks(hbm_bytes_per_s=3.35e12, tf32=495e12,
+                                       bf16=989e12, f32=67e12),
+}
+
+
+def card_peaks(name: str) -> CardPeaks:
+    """The peaks of the card named `name`; raises KeyError for a card the
+    table does not hold (a bound against another card's peaks would be
+    wrong, so there is no default)."""
+    try:
+        return CARD_PEAKS[name]
+    except KeyError:
+        raise KeyError(f'no published peaks for card {name!r}; known: '
+                       f'{sorted(CARD_PEAKS)}') from None
+
+
+def matmul_peak(name: str, precision: str) -> Tuple[float, str]:
+    """(FLOP/s, its label) of the dense matmul peak that matmul_precision
+    `precision` runs f32 products at on card `name`: TF32 where
+    allows_tf32, else float32 outside the tensor cores."""
+    peaks = card_peaks(name)
+    return (peaks.tf32, 'tf32') if allows_tf32(precision) \
+        else (peaks.f32, 'f32')
+
+
+def smi_line() -> str:
+    """The first card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them (a card
+    may be set below its peaks' 700 W); raises if nvidia-smi fails."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 @contextlib.contextmanager

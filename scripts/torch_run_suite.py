@@ -9,7 +9,8 @@ Usage:
       [--comp-heldout N] [--comp-snapshot last|best]
       [--comp-seam none|residual] [--seg-color-criterion on|off]
       [--seg-hysteresis H] [--seg-texture-criterion on|off]
-      [--preset quality] [--rank-iters N] [--set KEY=VALUE ...]
+      [--preset quality] [--rank-iters N] [--rank-proxy P]
+      [--skip-search] [--search-only] [--set KEY=VALUE ...]
 
 DIR/<task>/input/<name>/ holds each example's four PNGs (masked_img,
 gt_img, unknown_mask, valid_mask). Every example is searched (one search
@@ -28,6 +29,12 @@ with the adaptive scale floored at 0.01), the seam-aware composite, two
 held-out blocks with the 'best' snapshot, and the segmentation's colour
 and texture criteria with hysteresis 0.5. Flags given explicitly win over
 the preset (--iters-scale too: then the iterations are not tripled).
+
+--skip-search reuses an example's config.odgt where OUT already holds one
+and searches only the others; --search-only stops after --batched-search
+(the records and their pictures written, nothing fitted). run_suite.py's
+--no-global-canvas and --aot-cache steer only XLA (the search canvas's
+pure pad and the serialized executables) and have no counterpart here.
 """
 import argparse
 import copy
@@ -77,11 +84,21 @@ def parse_args(argv=None):
                          'configuration (see the module docstring)')
     ap.add_argument('--rank-iters', type=int, default=None,
                     help="override the search's SearchConfig.N_iters")
+    ap.add_argument('--rank-proxy', default=None,
+                    choices=['reference', 'window', 'mse', 'heldout_mse'],
+                    help="the ranking's proxy objective "
+                         '(default: SearchConfig.rank_proxy)')
+    ap.add_argument('--skip-search', action='store_true',
+                    help="reuse an example's existing config.odgt")
+    ap.add_argument('--search-only', action='store_true',
+                    help='stop after --batched-search: the records, no fit')
     ap.add_argument('--set', action='append', default=[],
                     metavar='KEY=VALUE',
                     help='override a task-config field, applied last '
                          '(cli.py value coercion; repeatable)')
     args = ap.parse_args(argv)
+    if args.search_only and not args.batched_search:
+        ap.error('--search-only requires --batched-search')
     quality = args.preset == 'quality'
     for key, plain, preset in (
             ('comp_seam', 'none', 'residual'), ('comp_heldout', 0, 2),
@@ -159,9 +176,17 @@ def search_config(args, in_dir, det_root, name):
     from npp_tpu_torch.config import SearchConfig, replace
     scfg = replace(SearchConfig(), datadir=os.path.join(in_dir, name),
                    outdir=det_root)
+    if args.rank_proxy:
+        scfg = replace(scfg, rank_proxy=args.rank_proxy)
     if args.rank_iters:
         scfg = replace(scfg, N_iters=args.rank_iters)
     return scfg
+
+
+def searched_before(args, det_dir):
+    """--skip-search and the example's record already exists."""
+    return args.skip_search and os.path.exists(
+        os.path.join(det_dir, 'config.odgt'))
 
 
 def load_task_data(task, cfg, device):
@@ -326,6 +351,9 @@ def main(argv=None):
                                args.seg_texture_criterion,
                            'seg_hysteresis': args.seg_hysteresis,
                            'aux_gate_ratio': args.aux_gate_ratio,
+                           'rank_proxy': args.rank_proxy,
+                           'skip_search': args.skip_search,
+                           'search_only': args.search_only,
                            'set': args.set}}
     if device.type == 'cuda':
         summary['env']['device_name'] = torch.cuda.get_device_name(device)
@@ -340,7 +368,8 @@ def main(argv=None):
             in_dir, names = list_examples(args, task)
             det_root = os.path.join(args.out, task, 'detected')
             pre += [(os.path.join(det_root, n),
-                     search_config(args, in_dir, det_root, n)) for n in names]
+                     search_config(args, in_dir, det_root, n)) for n in names
+                    if not searched_before(args, os.path.join(det_root, n))]
         if pre:
             t0 = time.time()
             stats = {}
@@ -359,7 +388,9 @@ def main(argv=None):
                                      'top_periods':
                                      odgt['selected_periods'][:3]}
 
-    for task in tasks:
+    if args.search_only:
+        print('[suite] --search-only: stopped after the search', flush=True)
+    for task in [] if args.search_only else tasks:
         in_dir, names = list_examples(args, task)
         det_root = os.path.join(args.out, task, 'detected')
         res_root = os.path.join(args.out, task, 'results')
@@ -370,7 +401,8 @@ def main(argv=None):
         for name in names:      # the searches, round-robin over any ranks
             det_dir = os.path.join(det_root, name)
             recs[name] = dict(searched.get(det_dir, {}))
-            if det_dir in searched or name not in mine:
+            if det_dir in searched or name not in mine or \
+                    searched_before(args, det_dir):
                 continue
             t0 = time.time()
             with timer.phase(f'search/{task}'):

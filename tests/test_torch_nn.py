@@ -171,6 +171,7 @@ def _port_sources():
         if f.startswith('torch_') and f.endswith('.py'):
             yield os.path.join(scripts, f)
     yield os.path.join(ROOT, 'chip_smoke.py')
+    yield os.path.join(ROOT, 'bench_torch.py')
 
 
 def test_port_imports_no_jax_and_nothing_of_npp_tpu():

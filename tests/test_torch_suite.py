@@ -214,3 +214,70 @@ def test_torch_run_suite_quality_preset():
                               'completion', 'det', 'res')
     assert (plain.comp_seam, plain.comp_heldout, plain.N_iters) == \
         ('none', 0, CompletionConfig().N_iters)
+
+
+def _suite_module():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'torch_run_suite', os.path.join(ROOT, 'scripts', 'torch_run_suite.py'))
+    suite = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(suite)
+    return suite
+
+
+def _run_suite(root, out, *flags):
+    cmd = [sys.executable, os.path.join(ROOT, 'scripts', 'torch_run_suite.py'),
+           '--device', 'cpu', '--input-root', str(root), '--out', str(out),
+           '--tasks', 'completion', '--iters-scale', '0.002',
+           '--rank-iters', '2', '--set', 'netwidth=32', '--set', 'netdepth=2',
+           '--set', 'N_rand=64', '--set', 'patch_num=1',
+           '--set', 'num_real_patch_per_sample=2', *flags]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS='2')
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    with open(out / 'summary.json') as f:
+        return json.load(f)
+
+
+def test_torch_run_suite_search_only_then_skip_search(tmp_path):
+    """--batched-search --search-only writes the record and fits nothing;
+    a second run with --skip-search leaves the record untouched (its bytes
+    and mtime) and fits from it (run_suite.py:239,256-267,284)."""
+    root = tmp_path / 'in'
+    _write_example(synthetic_search_data(1, *SIZES[0]),
+                   str(root / 'completion' / 'input' / 'ex1'))
+    out = tmp_path / 'out'
+    summary = _run_suite(root, out, '--batched-search', '--search-only')
+    odgt = out / 'completion' / 'detected' / 'ex1' / 'config.odgt'
+    assert odgt.exists() and summary['tasks'] == {}
+    assert summary['options']['search_only']
+    assert summary['search_batched']['images'] == 1
+    assert not (out / 'completion' / 'results').exists()
+    before = (odgt.read_bytes(), odgt.stat().st_mtime_ns)
+
+    summary = _run_suite(root, out, '--batched', '--batched-search',
+                         '--skip-search')
+    assert (odgt.read_bytes(), odgt.stat().st_mtime_ns) == before
+    assert 'search_batched' not in summary
+    rec = summary['tasks']['completion']['ex1']
+    assert np.isfinite(rec['val_psnr']) and 'search_s' not in rec
+    assert (out / 'completion' / 'results' / 'completion_top3' / 'ex1' /
+            'testset_final' / 'pred_rgb_img_comp.png').exists()
+
+
+def test_torch_run_suite_search_only_needs_batched_search(capsys):
+    suite = _suite_module()
+    with pytest.raises(SystemExit) as exc:
+        suite.parse_args(['--input-root', 'in', '--search-only'])
+    assert exc.value.code != 0
+    assert '--search-only requires --batched-search' in capsys.readouterr().err
+
+
+def test_torch_run_suite_rank_proxy_reaches_search_config():
+    suite = _suite_module()
+    for flags, want in (([], SearchConfig().rank_proxy),
+                        (['--rank-proxy', 'heldout_mse'], 'heldout_mse')):
+        args = suite.parse_args(['--input-root', 'in', *flags])
+        assert suite.search_config(args, 'in', 'det', 'ex').rank_proxy == want
+    assert SearchConfig().rank_proxy == 'reference'
