@@ -1915,15 +1915,8 @@ def check_batched_step():
 
 
 def _device_ms(prof):
-    import torch
-    total = 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            total += us / 1e3
-    return total
+    from npp_tpu_torch.utils.debug import kernel_times
+    return sum(ms for ms, _ in kernel_times(prof).values())
 
 
 class BlockProfile:
@@ -2752,6 +2745,8 @@ def k3_pass_ms(fn, iters=5):
     'cx_gemm_tf32', 'cx_row_stats<0>')."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from npp_tpu_torch.utils.debug import kernel_times
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2759,14 +2754,10 @@ def k3_pass_ms(fn, iters=5):
             fn()
         torch.cuda.synchronize()
     out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r'cx_\w+(<\d+>)?', ev.key)
-            name = m.group(0) if m else ev.key[:60]
-            out[name] = out.get(name, 0.0) + us / 1e3 / iters
+    for key, (ms, _) in kernel_times(prof).items():
+        m = re.search(r'cx_\w+(<\d+>)?', key)
+        name = m.group(0) if m else key[:60]
+        out[name] = out.get(name, 0.0) + ms / iters
     return out
 
 

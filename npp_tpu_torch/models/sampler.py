@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops.glimpse import extract_patches, patch_grid, summed_area_table, window_sum
+from ..utils.debug import span
 from ..utils.pools import pad_pool_pow2
 
 MAX_SHIFT_IDX = 10   # lattice search extent (reference: sampler.py:89)
@@ -123,7 +124,9 @@ def build_sampler_consts(img: np.ndarray, mask: np.ndarray,
 
 
 def _randint(gen: torch.Generator, high: int, shape, device) -> torch.Tensor:
-    return torch.randint(0, high, shape, generator=gen).to(device)
+    idx = torch.randint(0, high, shape, generator=gen)
+    with span('npp.h2d'):
+        return idx.to(device)
 
 
 def _sample_fake(gen, consts: SamplerConsts, pool, pool_n, patch_num: int,

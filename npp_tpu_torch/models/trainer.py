@@ -40,6 +40,7 @@ from ..losses.style import StyleLoss
 from ..nn.embedder import TaskEmbedder, make_embedding_table
 from ..nn.mlp import render_activation
 from ..nn.warp import WarpField, make_warp, warp_coords
+from ..utils.debug import span
 from .sampler import (SOURCE_SAME, SOURCE_VAL, PatchBatch, SamplerConsts,
                       sample_patches)
 
@@ -127,10 +128,11 @@ def draw_batch(cfg, gen: torch.Generator, sampler: SamplerConsts,
                ) -> Tuple[PatchBatch, torch.Tensor]:
     """One step's draws from `gen`, in the order every fit draws them: the
     patches, then N_rand indices into the pixel pool (on the host)."""
-    batch = sample_patches(gen, sampler, patch_num, patch_size,
-                           cfg.num_real_patch_per_sample, cfg.invalid_ratio,
-                           cfg.no_reg_sampling)
-    return batch, torch.randint(0, pool_n, (cfg.N_rand,), generator=gen)
+    with span('npp.draw'):
+        batch = sample_patches(gen, sampler, patch_num, patch_size,
+                               cfg.num_real_patch_per_sample,
+                               cfg.invalid_ratio, cfg.no_reg_sampling)
+        return batch, torch.randint(0, pool_n, (cfg.N_rand,), generator=gen)
 
 
 def image_losses(cfg, params: FitParams, pred_pix: torch.Tensor,
@@ -153,20 +155,21 @@ def image_losses(cfg, params: FitParams, pred_pix: torch.Tensor,
     metrics: Dict[str, torch.Tensor] = {}
     loss = torch.zeros((), device=dev)
     if not cfg.no_pix_loss:
-        if not stacked:
-            pix = img2mse(pred_pix[0], gt_rgb[0], cfg.loss_type,
-                          params.adaptive_pix, gt_mask[0],
-                          scale_lo=cfg.adaptive_scale_lo)
-        elif cfg.loss_type == 'robust_loss_adaptive':
-            diff = pred_pix - gt_rgb
-            diff = diff * gt_mask + (1.0 - gt_mask) * diff * 0.3
-            pix = stacked_nll_mean_sum(diff, params.adaptive_pix,
-                                       scale_lo=cfg.adaptive_scale_lo)
-        else:
-            pix = sum(img2mse(pred_pix[j], gt_rgb[j], cfg.loss_type, None,
-                              gt_mask[j]) for j in range(nb))
-        loss = loss + pix
-        metrics['pixel'] = pix.detach() / nb
+        with span('npp.loss.pixel'):
+            if not stacked:
+                pix = img2mse(pred_pix[0], gt_rgb[0], cfg.loss_type,
+                              params.adaptive_pix, gt_mask[0],
+                              scale_lo=cfg.adaptive_scale_lo)
+            elif cfg.loss_type == 'robust_loss_adaptive':
+                diff = pred_pix - gt_rgb
+                diff = diff * gt_mask + (1.0 - gt_mask) * diff * 0.3
+                pix = stacked_nll_mean_sum(diff, params.adaptive_pix,
+                                           scale_lo=cfg.adaptive_scale_lo)
+            else:
+                pix = sum(img2mse(pred_pix[j], gt_rgb[j], cfg.loss_type,
+                                  None, gt_mask[j]) for j in range(nb))
+            loss = loss + pix
+            metrics['pixel'] = pix.detach() / nb
 
     # ---- NHWC patch tensors, (B*P*K, S, S, C), image-major
     patch_num, s = pred_patch.shape[1:3]
@@ -197,54 +200,63 @@ def image_losses(cfg, params: FitParams, pred_pix: torch.Tensor,
     if cfg.use_comp and any(is_val):
         cx_pred = fake_rgb * fake_mask + pred_t * (1.0 - fake_mask)
         if not all(is_val):
-            rows = torch.tensor(is_val, device=dev).repeat_interleave(pk)
+            with span('npp.h2d'):
+                rows = torch.tensor(is_val, device=dev)
+            rows = rows.repeat_interleave(pk)
             cx_pred = torch.where(rows[:, None, None, None], cx_pred, pred_t)
 
     if cfg.use_contextual_loss and contextual is not None:
-        cx = contextual(cx_pred * real_mask, real_rgb * real_mask,
-                        weight=weight, valid=valid,
-                        groups=nb if stacked else None)
-        loss = loss + torch.sum(cx) * cfg.contextual_weight
-        metrics['contextual'] = cx.detach().mean()
+        with span('npp.loss.cx'):
+            cx = contextual(cx_pred * real_mask, real_rgb * real_mask,
+                            weight=weight, valid=valid,
+                            groups=nb if stacked else None)
+            loss = loss + torch.sum(cx) * cfg.contextual_weight
+            metrics['contextual'] = cx.detach().mean()
 
     if cfg.use_perceptual_loss and percep is not None:
         # only on 'same' batches (reference: train.py:239-251)
         same = [j for j, src in enumerate(sources) if src == SOURCE_SAME]
         perc = torch.zeros((), device=dev)
         if same:
-            if len(same) < nb:
-                rows = torch.cat([torch.arange(j * pk, (j + 1) * pk)
-                                  for j in same]).to(dev)
-                pred_s, real_s, fake_s, valid_s = (
-                    t[rows] for t in (pred_t, real_mask, fake_rgb, valid))
-                weight_s = None if weight is None else weight[rows]
-            else:
-                pred_s, real_s, fake_s, valid_s, weight_s = (
-                    pred_t, real_mask, fake_rgb, valid, weight)
-            robust = cfg.use_adaptive_perceptual_loss
-            per = percep(pred_s * real_s, fake_s * real_s, use_robust=robust,
-                         adaptive=params.adaptive_percep, normalize=True,
-                         images=same if stacked and robust else None
-                         ).reshape(len(same), pk)
-            v = valid_s.reshape(len(same), pk)
-            if weight_s is not None:
-                perc = torch.sum(per * weight_s.reshape(len(same), pk) * v)
-            else:
-                vf = v.to(per.dtype)
-                perc = torch.sum(torch.sum(per * vf, 1) /
-                                 torch.clamp(vf.sum(1), min=1.0))
-            loss = loss + perc * cfg.perceptual_weight
+            with span('npp.loss.lpips'):
+                if len(same) < nb:
+                    rows = torch.cat([torch.arange(j * pk, (j + 1) * pk)
+                                      for j in same])
+                    with span('npp.h2d'):
+                        rows = rows.to(dev)
+                    pred_s, real_s, fake_s, valid_s = (
+                        t[rows] for t in (pred_t, real_mask, fake_rgb, valid))
+                    weight_s = None if weight is None else weight[rows]
+                else:
+                    pred_s, real_s, fake_s, valid_s, weight_s = (
+                        pred_t, real_mask, fake_rgb, valid, weight)
+                robust = cfg.use_adaptive_perceptual_loss
+                per = percep(pred_s * real_s, fake_s * real_s,
+                             use_robust=robust,
+                             adaptive=params.adaptive_percep, normalize=True,
+                             images=same if stacked and robust else None
+                             ).reshape(len(same), pk)
+                v = valid_s.reshape(len(same), pk)
+                if weight_s is not None:
+                    perc = torch.sum(per * weight_s.reshape(len(same), pk) * v)
+                else:
+                    vf = v.to(per.dtype)
+                    perc = torch.sum(torch.sum(per * vf, 1) /
+                                     torch.clamp(vf.sum(1), min=1.0))
+                loss = loss + perc * cfg.perceptual_weight
         metrics['perceptual'] = perc.detach() / nb
 
     if task.use_style and getattr(cfg, 'use_style_loss', False) \
             and style is not None:
         # (reference: NPP_remapping/train.py:255-262), the comp-paste on
         # 'val' batches as for CX
-        st = style(cx_pred * real_mask, real_rgb * real_mask, weight=weight,
-                   adaptive=params.adaptive_style, valid=valid,
-                   images=list(range(nb)) if stacked else None)
-        loss = loss + torch.sum(st) * cfg.style_weight
-        metrics['style'] = st.detach().mean()
+        with span('npp.loss.style'):
+            st = style(cx_pred * real_mask, real_rgb * real_mask,
+                       weight=weight, adaptive=params.adaptive_style,
+                       valid=valid,
+                       images=list(range(nb)) if stacked else None)
+            loss = loss + torch.sum(st) * cfg.style_weight
+            metrics['style'] = st.detach().mean()
 
     metrics['source'] = torch.tensor(float(np.mean(sources)))
     return loss, metrics
@@ -273,15 +285,18 @@ def build_loss_fn(cfg, percep: Optional[LPIPS],
                                         patch_size)
 
         # ---- pixel batch (reference: NPP_completion/train.py:172-178)
-        pix_coords = consts.pool_train[pix_idx.to(consts.pixel_img.device)]
+        with span('npp.h2d'):
+            pix_idx = pix_idx.to(consts.pixel_img.device)
+        pix_coords = consts.pool_train[pix_idx]
         gt_rgb = consts.pixel_img[pix_coords[:, 0], pix_coords[:, 1]]
         gt_mask = consts.pixel_mask[pix_coords[:, 0], pix_coords[:, 1]]
 
         # ---- one MLP forward over pixels + patch pixels
         all_coords = torch.cat([pix_coords, batch.fake_coords.reshape(-1, 2)], 0)
-        raw = params.mlp(embed_coords(params, embedder,
-                                      all_coords.to(torch.float32)))
-        pred = render_activation(raw, cfg.normalize_type)
+        with span('npp.embed'):
+            emb = embed_coords(params, embedder, all_coords.to(torch.float32))
+        with span('npp.mlp'):
+            pred = render_activation(params.mlp(emb), cfg.normalize_type)
         return image_losses(
             cfg, params, pred[None, :n_rand], gt_rgb[None], gt_mask[None],
             pred[None, n_rand:].reshape(1, patch_num, patch_size, patch_size,
@@ -299,11 +314,13 @@ def fit_step(state: FitState, loss_fn, embedder, consts: FitConsts,
         group['lr'] = schedule(state.step)
     state.optimizer.zero_grad(set_to_none=True)
     loss, metrics = loss_fn(state.params, embedder, consts, gen)
-    loss.backward()
-    for p in state.params.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    state.optimizer.step()
+    with span('npp.backward'):
+        loss.backward()
+    with span('npp.adam'):
+        for p in state.params.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        state.optimizer.step()
     state.step += 1
     metrics['loss'] = loss.detach()
     return metrics
@@ -354,12 +371,16 @@ def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
     def run_block(state: FitState, gen: torch.Generator):
         # npp_tpu's scope (trainer.py:139-146): every matmul and convolution
         # of the loss and of its gradient, so loss.backward() as well
-        with matmul_precision(cfg.matmul_precision):
-            emb = embedder if dtype is None else \
-                make_embedding_table(embedder, dtype)
+        with matmul_precision(cfg.matmul_precision), span('npp.block'):
+            emb = embedder
+            if dtype is not None:
+                with span('npp.table'):
+                    emb = make_embedding_table(embedder, dtype)
             metrics = None
             for _ in range(block):
-                metrics = fit_step(state, loss_fn, emb, consts, gen, schedule)
+                with span('npp.step', state.step):
+                    metrics = fit_step(state, loss_fn, emb, consts, gen,
+                                       schedule)
         return metrics
 
     return run_block
@@ -377,12 +398,12 @@ def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
         ys, xs = torch.meshgrid(torch.arange(h, device=dev),
                                 torch.arange(w, device=dev), indexing='ij')
         coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
-        with matmul_precision(cfg.matmul_precision):
+        with matmul_precision(cfg.matmul_precision), span('npp.render'):
             out = [render_activation(params.mlp(embed_coords(params,
                                                              embedder, c)),
                                      cfg.normalize_type)
                    for c in coords.split(chunk)]
-        return torch.cat(out, 0).reshape(h, w, 3)
+            return torch.cat(out, 0).reshape(h, w, 3)
 
     return render
 

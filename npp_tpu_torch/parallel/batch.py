@@ -54,6 +54,7 @@ from ..models.trainer import (COMPLETION_TASK, RENDER_CHUNK, FitConsts,
                               make_schedule)
 from ..nn.embedder import TaskEmbedder
 from ..nn.mlp import StackedLinear, render_activation
+from ..utils.debug import span
 from .mesh import Mesh, gather_leading_axis
 
 
@@ -336,7 +337,8 @@ def build_batched_loss_fn(cfg, percep, contextual, patch_num: int,
                                         patch_size)
                 batches.append(batch)
                 idx.append(pix)
-        pix_idx = torch.stack([p.to(dev) for p in idx])
+        with span('npp.h2d'):
+            pix_idx = torch.stack([p.to(dev) for p in idx])
 
         # ---- pixel batches (B, N_rand, .)
         bi = torch.arange(nb, device=dev)[:, None]
@@ -348,8 +350,10 @@ def build_batched_loss_fn(cfg, percep, contextual, patch_num: int,
         # ---- one stacked MLP forward over pixels + patch pixels
         fake = torch.stack([b.fake_coords.reshape(-1, 2) for b in batches])
         all_coords = torch.cat([pix_coords, fake], 1).to(torch.float32)
-        raw = params.mlp(embed_coords_batched(params, emb_b, all_coords, res))
-        pred = render_activation(raw, cfg.normalize_type)
+        with span('npp.embed'):
+            emb = embed_coords_batched(params, emb_b, all_coords, res)
+        with span('npp.mlp'):
+            pred = render_activation(params.mlp(emb), cfg.normalize_type)
         return image_losses(
             cfg, params, pred[:, :n_rand], gt_rgb, gt_mask,
             pred[:, n_rand:].reshape(nb, patch_num, patch_size, patch_size,
@@ -377,13 +381,16 @@ def make_batched_fit_block(cfg, emb_b: StackedEmbedder,
         and not getattr(cfg, 'warp_field', False)
 
     def run_block(state: FitState, gens):
-        with matmul_precision(cfg.matmul_precision):
-            emb = make_batched_table(emb_b, grid_hw, table) if use_table \
-                else emb_b
+        with matmul_precision(cfg.matmul_precision), span('npp.block'):
+            emb = emb_b
+            if use_table:
+                with span('npp.table'):
+                    emb = make_batched_table(emb_b, grid_hw, table)
             metrics = None
             for _ in range(block):
-                metrics = fit_step(state, loss_fn, emb, consts_b, gens,
-                                   schedule)
+                with span('npp.step', state.step):
+                    metrics = fit_step(state, loss_fn, emb, consts_b, gens,
+                                       schedule)
         return metrics
 
     return run_block

@@ -53,6 +53,7 @@ from ..nn.embedder import (fourier_encode, gaussian_freq_bands,
 from ..nn.mlp import NPPNetLight, render_activation
 from ..parallel.mesh import (Mesh, gather_leading_axis, image_sharding,
                              mean_over_mesh)
+from ..utils.debug import PhaseTimer
 
 RENDER_CHUNK = 1 << 14
 CX_GROUP_BYTES = 1 << 33   # the CX chain's (P, P) matrices per group
@@ -340,10 +341,7 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
                           device=device)
     params = init_rank_params(cfg, n_cand, device)
     stats = {} if stats is None else stats
-
-    def sync():
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
+    timer = PhaseTimer()
 
     with matmul_precision('float32'):    # the fit sets its own
         if params_override is not None:
@@ -351,25 +349,26 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
         else:
             pool = torch.as_tensor(np.asarray(i_train), dtype=torch.long,
                                    device=device)
-            sync()
-            t0 = time.time()
-            losses = fit_candidates(
-                params, lat, img, pool,
-                torch.Generator().manual_seed(cfg.seed + 1), cfg.N_iters)
-            if mesh is not None:
-                losses = mean_over_mesh(losses, mesh)
-            losses = losses.cpu().numpy()
-            fit_s = time.time() - t0
+            if device.type == 'cuda':
+                torch.cuda.synchronize(device)
+            with timer.phase('npp.search.rank_fit'):
+                losses = fit_candidates(
+                    params, lat, img, pool,
+                    torch.Generator().manual_seed(cfg.seed + 1), cfg.N_iters)
+                if mesh is not None:
+                    losses = mean_over_mesh(losses, mesh)
+                losses = losses.cpu().numpy()
+            fit_s = timer.phases['npp.search.rank_fit']
             stats.update(fit_s=fit_s, fit_losses=losses,
                          fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
             print(f'[search] fit: {cfg.N_iters} steps of {n_cand} '
                   f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step, '
                   f'loss {losses[0]:.4f} -> {losses[-1]:.4f}', flush=True)
-        t0 = time.time()
-        comps = eval_candidates(cfg, params, lat, img, i_val,
-                                _eval_inputs(cfg, i_val, norm_res), percep,
-                                contextual, stats)
-        stats['eval_s'] = time.time() - t0
+        with timer.phase('npp.search.rank_eval'):
+            comps = eval_candidates(cfg, params, lat, img, i_val,
+                                    _eval_inputs(cfg, i_val, norm_res),
+                                    percep, contextual, stats)
+        stats['eval_s'] = timer.phases['npp.search.rank_eval']
     if mesh is not None:
         comps = gather_components(comps, mesh, cand_axis, n_real, device)
     scores = combine_scores(cfg, comps)
@@ -488,33 +487,31 @@ def rank_proposals_suite(cfg, items, percep: LPIPS,
     pools = [torch.as_tensor(np.asarray(it['i_train']), dtype=torch.long,
                              device=device) for it in items]
     params = init_rank_params(cfg, nb * n_cand, device)
-
-    def sync():
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
+    timer = PhaseTimer()
 
     with matmul_precision('float32'):    # the fit sets its own
-        sync()
-        t0 = time.time()
-        losses = fit_candidates_suite(
-            params, lats, imgs, pools,
-            [torch.Generator().manual_seed(cfg.seed + 1) for _ in items],
-            angles, periods, cfg.N_iters)
-        if mesh is not None:
-            losses = mean_over_mesh(losses, mesh)
-        losses = losses.cpu().numpy()
-        fit_s = time.time() - t0
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        with timer.phase('npp.search.rank_fit'):
+            losses = fit_candidates_suite(
+                params, lats, imgs, pools,
+                [torch.Generator().manual_seed(cfg.seed + 1) for _ in items],
+                angles, periods, cfg.N_iters)
+            if mesh is not None:
+                losses = mean_over_mesh(losses, mesh)
+            losses = losses.cpu().numpy()
+        fit_s = timer.phases['npp.search.rank_fit']
         stats.update(fit_s=fit_s, fit_losses=losses,
                      fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
         print(f'[search-suite] fit: {cfg.N_iters} steps of {nb} x {n_cand} '
               f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step', flush=True)
-        t0 = time.time()
-        comps = [eval_candidates(
-            cfg, slice_rank_params(cfg, params, j, n_cand, device), lats[j],
-            imgs[j], it['i_val'], _eval_inputs(cfg, it['i_val'],
-                                               it['norm_res']),
-            percep, contextual) for j, it in enumerate(items)]
-        stats['eval_s'] = time.time() - t0
+        with timer.phase('npp.search.rank_eval'):
+            comps = [eval_candidates(
+                cfg, slice_rank_params(cfg, params, j, n_cand, device),
+                lats[j], imgs[j], it['i_val'],
+                _eval_inputs(cfg, it['i_val'], it['norm_res']),
+                percep, contextual) for j, it in enumerate(items)]
+        stats['eval_s'] = timer.phases['npp.search.rank_eval']
     comps = {k: np.stack([c[k] for c in comps]) for k in comps[0]}
     if mesh is not None:
         comps = gather_components(comps, mesh, images_axis, n_img, device)

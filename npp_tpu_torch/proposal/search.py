@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import os
 import sys
-import time
 from typing import Optional
 
 import numpy as np
@@ -24,11 +23,24 @@ from ..device import resolve_device
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..parallel.mesh import Mesh
+from ..utils.debug import PhaseTimer
 from ..utils.io import read_example_dir, write_gray, write_odgt, write_rgb
 from ..utils.visualizer import GridProgram, mask2ltrb
 from .pseudo_mask import build_pseudo_split
 from .ranking import combine_scores, rank_proposals, rank_proposals_suite
 from .search_engine import search_periodicity_by_feat
+
+PHASES = ('detect', 'rank', 'artefacts')   # the spans npp.search.<phase>
+
+
+def _phase_walls(timer: PhaseTimer, stats: dict) -> str:
+    """The phases' walls into `stats` ('<phase>_s' and 'total_s'), and as
+    the printed summary."""
+    walls = {f'{k}_s': timer.phases.get(f'npp.search.{k}', 0.0)
+             for k in PHASES}
+    walls['total_s'] = sum(walls.values())
+    stats.update(walls)
+    return ' '.join(f'{k[:-2]}={v:.1f}s' for k, v in walls.items())
 
 
 def _prepare_search(cfg, data: dict, device: torch.device) -> dict:
@@ -158,36 +170,34 @@ def run_search(cfg, percep: Optional[LPIPS] = None,
     device='cpu' is passed. Returns the odgt record; with save=True it is
     also written, with the PNGs, under cfg.outdir. stats: a
     dict to fill with the phase walls ('detect_s', 'rank_s',
-    'artefacts_s') and rank_proposals' split."""
+    'artefacts_s', 'total_s': the PhaseTimer phases npp.search.<phase>)
+    and rank_proposals' split."""
     device = resolve_device(device)
     stats = {} if stats is None else stats
-    t_start = time.time()
-    if data is None:
-        data = read_example_dir(cfg.datadir)
-    prep = _prepare_search(cfg, data, device)
-    t_detect = time.time()
+    timer = PhaseTimer()
+    with timer.phase('npp.search.detect'):
+        if data is None:
+            data = read_example_dir(cfg.datadir)
+        prep = _prepare_search(cfg, data, device)
     print(f'[search] {len(prep["all_angles"])} candidates detected '
-          f'({t_detect - t_start:.1f}s)', flush=True)
+          f'({timer.phases["npp.search.detect"]:.1f}s)', flush=True)
 
     # ranking (reference: search.py:78-219)
-    if percep is None:
-        percep = LPIPS(device, net='vgg')
-    if contextual is None:
-        contextual = ContextualLoss(device)
-    distances, rank_comps = rank_proposals(
-        cfg, prep['masked_img'], prep['i_train'], prep['i_val'],
-        prep['all_angles'], prep['all_periods'], percep, contextual,
-        norm_res=(prep['dh'], prep['dw']), return_components=True,
-        device=device, stats=stats)
-    t_rank = time.time()
+    with timer.phase('npp.search.rank'):
+        if percep is None:
+            percep = LPIPS(device, net='vgg')
+        if contextual is None:
+            contextual = ContextualLoss(device)
+        distances, rank_comps = rank_proposals(
+            cfg, prep['masked_img'], prep['i_train'], prep['i_val'],
+            prep['all_angles'], prep['all_periods'], percep, contextual,
+            norm_res=(prep['dh'], prep['dw']), return_components=True,
+            device=device, stats=stats)
 
-    odgt = _finish_search(prep, distances, rank_comps, save)
-    t_end = time.time()
-    stats.update(detect_s=t_detect - t_start, rank_s=t_rank - t_detect,
-                 artefacts_s=t_end - t_rank, total_s=t_end - t_start)
-    print(f'[search] phases: detect={t_detect - t_start:.1f}s '
-          f'rank={t_rank - t_detect:.1f}s artefacts={t_end - t_rank:.1f}s '
-          f'total={t_end - t_start:.1f}s', file=sys.stderr, flush=True)
+    with timer.phase('npp.search.artefacts'):
+        odgt = _finish_search(prep, distances, rank_comps, save)
+    print(f'[search] phases: {_phase_walls(timer, stats)}', file=sys.stderr,
+          flush=True)
     return odgt
 
 
@@ -210,39 +220,37 @@ def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
     that every rank passes once they are written."""
     device = resolve_device(device)
     stats = {} if stats is None else stats
-    t_start = time.time()
-    datas = datas if datas is not None else \
-        [read_example_dir(cfg.datadir) for cfg in cfgs]
-    preps = [_prepare_search(cfg, d, device) for cfg, d in zip(cfgs, datas)]
-    t_detect = time.time()
-    hmax = max(p['masked_img'].shape[0] for p in preps)
-    wmax = max(p['masked_img'].shape[1] for p in preps)
-    items = []
-    for p in preps:
-        h, w = p['masked_img'].shape[:2]
-        pad3 = ((0, hmax - h), (0, wmax - w), (0, 0))
-        items.append({'masked_img': np.pad(p['masked_img'], pad3),
-                      'i_train': p['i_train'], 'i_val': p['i_val'],
-                      'all_angles': p['all_angles'],
-                      'all_periods': p['all_periods'],
-                      'norm_res': (p['dh'], p['dw'])})
-    if percep is None:
-        percep = LPIPS(device, net='vgg')
-    if contextual is None:
-        contextual = ContextualLoss(device)
-    ranked = rank_proposals_suite(cfgs[0], items, percep, contextual,
-                                  device=device, stats=stats, mesh=mesh,
-                                  images_axis=images_axis)
-    t_rank = time.time()
-    save = save and (mesh is None or mesh.rank == 0)
-    odgts = [_finish_search(p, d, c, save) for p, (d, c) in zip(preps, ranked)]
-    if mesh is not None:
-        mesh.barrier()
-    t_end = time.time()
-    stats.update(detect_s=t_detect - t_start, rank_s=t_rank - t_detect,
-                 artefacts_s=t_end - t_rank, total_s=t_end - t_start)
-    print(f'[search-suite] {len(cfgs)} images: '
-          f'detect={t_detect - t_start:.1f}s rank={t_rank - t_detect:.1f}s '
-          f'artefacts={t_end - t_rank:.1f}s total={t_end - t_start:.1f}s',
+    timer = PhaseTimer()
+    with timer.phase('npp.search.detect'):
+        datas = datas if datas is not None else \
+            [read_example_dir(cfg.datadir) for cfg in cfgs]
+        preps = [_prepare_search(cfg, d, device)
+                 for cfg, d in zip(cfgs, datas)]
+    with timer.phase('npp.search.rank'):
+        hmax = max(p['masked_img'].shape[0] for p in preps)
+        wmax = max(p['masked_img'].shape[1] for p in preps)
+        items = []
+        for p in preps:
+            h, w = p['masked_img'].shape[:2]
+            pad3 = ((0, hmax - h), (0, wmax - w), (0, 0))
+            items.append({'masked_img': np.pad(p['masked_img'], pad3),
+                          'i_train': p['i_train'], 'i_val': p['i_val'],
+                          'all_angles': p['all_angles'],
+                          'all_periods': p['all_periods'],
+                          'norm_res': (p['dh'], p['dw'])})
+        if percep is None:
+            percep = LPIPS(device, net='vgg')
+        if contextual is None:
+            contextual = ContextualLoss(device)
+        ranked = rank_proposals_suite(cfgs[0], items, percep, contextual,
+                                      device=device, stats=stats, mesh=mesh,
+                                      images_axis=images_axis)
+    with timer.phase('npp.search.artefacts'):
+        save = save and (mesh is None or mesh.rank == 0)
+        odgts = [_finish_search(p, d, c, save)
+                 for p, (d, c) in zip(preps, ranked)]
+        if mesh is not None:
+            mesh.barrier()
+    print(f'[search-suite] {len(cfgs)} images: {_phase_walls(timer, stats)}',
           file=sys.stderr, flush=True)
     return odgts

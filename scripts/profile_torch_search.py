@@ -28,17 +28,14 @@ sys.path.insert(0, os.path.join(ROOT, 'scripts'))
 from profile_torch_fit import group_of  # noqa: E402
 
 
-def device_ms_by_group(prof, torch):
+def device_ms_by_group(prof):
     """Device ms by group of profile_torch_fit.GROUPS, and the total."""
+    from npp_tpu_torch.utils.debug import kernel_times
     groups, total = {}, 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            g = group_of(ev.key)
-            groups[g] = groups.get(g, 0.0) + us / 1e3
-            total += us / 1e3
+    for name, (ms, _) in kernel_times(prof).items():
+        g = group_of(name)
+        groups[g] = groups.get(g, 0.0) + ms
+        total += ms
     if not total:
         sys.exit('profile_torch_search: the profiler saw no device time')
     return dict(sorted(groups.items(), key=lambda kv: -kv[1])), total
@@ -101,7 +98,7 @@ def main(argv=None):
             ranking.fit_candidates(params, lat, img, pool, gen, args.steps)
             torch.cuda.synchronize()
             fit_wall = 1e3 * (time.time() - t0)
-        fit_groups, fit_dev = device_ms_by_group(prof, torch)
+        fit_groups, fit_dev = device_ms_by_group(prof)
 
         crop = ranking._eval_inputs(cfg, prep['i_val'],
                                     (prep['dh'], prep['dw']))
@@ -112,7 +109,7 @@ def main(argv=None):
                                     crop, percep, contextual)
             torch.cuda.synchronize()
             eval_wall = 1e3 * (time.time() - t0)
-        eval_groups, eval_dev = device_ms_by_group(prof, torch)
+        eval_groups, eval_dev = device_ms_by_group(prof)
 
         # one candidate's CX alone, on the eval's bbox crop
         y0, x0, ch, cw = crop

@@ -74,17 +74,12 @@ def segment(cfg, arrays):
 def device_ms_of(cfg, arrays):
     """The card's kernel time over one whole call under torch.profiler,
     and that call's wall seconds."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from npp_tpu_torch.utils.debug import kernel_times
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = segment(cfg, arrays)
-    device_ms = 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = ev.self_cuda_time_total
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            device_ms += us / 1e3
+    device_ms = sum(ms for ms, _ in kernel_times(prof).values())
     if device_ms <= 0:
         sys.exit('torch_segment_synthetic: the profiler saw no device time')
     return device_ms, wall
