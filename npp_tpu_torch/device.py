@@ -1,6 +1,6 @@
 """Device resolution for the port's entry points, the matmul precision
-scope of the fit, and the cards' published peaks that bounds and MFU are
-taken against.
+scope of the fit, the fit's host-to-card copies, and the cards' published
+peaks that bounds and MFU are taken against.
 
 Entry points run on the card unless the caller asks for the CPU. With no
 card and no explicit CPU request they raise: a silent CPU fallback would
@@ -30,6 +30,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if device is None:
         dev = torch.device('cuda', torch.cuda.current_device())
     return dev
+
+
+def to_device_async(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`t`, a CPU tensor, on `dev` without waiting for the card's queue.
+
+    A plain `.to(cuda)` from pageable memory copies and then synchronises
+    the stream, so the host stops until every kernel queued before it has
+    run. On a card the values go through a fresh pinned block and a
+    non-blocking copy instead: PyTorch's caching host allocator keeps the
+    block until the copy's stream event has passed, so the host may run
+    ahead and no buffer is written while a copy still reads it. On the
+    CPU it is `t.to(dev)`."""
+    if dev.type != 'cuda':
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
 
 
 # matmul_precision names as jax.default_matmul_precision takes them, and

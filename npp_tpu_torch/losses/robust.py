@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -121,14 +121,21 @@ def _load_spline():
                 np.asarray(f['tangents'], np.float32))
 
 
+@functools.lru_cache(maxsize=None)
+def _spline_on(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spline's values and tangents on `dev`, copied once rather than
+    on every call: a copy to the card waits for its queue to drain."""
+    _, values, tangents = _load_spline()
+    return (torch.as_tensor(values, device=dev),
+            torch.as_tensor(tangents, device=dev))
+
+
 def log_base_partition_function(alpha):
     """log(Z(alpha)) via the precomputed spline (reference:
     distribution.py:144-170)."""
-    x_scale, values, tangents = _load_spline()
+    x_scale = _load_spline()[0]
     x = partition_spline_curve(alpha)
-    return interpolate1d(x * x_scale,
-                         torch.as_tensor(values, device=alpha.device),
-                         torch.as_tensor(tangents, device=alpha.device))
+    return interpolate1d(x * x_scale, *_spline_on(alpha.device))
 
 
 def nllfun(x, alpha, scale):

@@ -2,7 +2,8 @@
 (reference: models/sampler.py:8-354).
 
 Random draws come from an explicit CPU `torch.Generator` (a few scalars and
-indices per step, copied to the device); the JAX package draws from keys,
+indices per step, copied to the device without waiting for its queue,
+`device.py::to_device_async`); the JAX package draws from keys,
 so the two agree in distribution only. Everything after the draws matches
 the JAX package on the same centroids:
  - candidate real-patch centroids = fake centroid + i*d1 + j*d2 over the
@@ -22,6 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import to_device_async
 from ..ops.glimpse import extract_patches, patch_grid, summed_area_table, window_sum
 from ..utils.debug import span
 from ..utils.pools import pad_pool_pow2
@@ -126,7 +128,7 @@ def build_sampler_consts(img: np.ndarray, mask: np.ndarray,
 def _randint(gen: torch.Generator, high: int, shape, device) -> torch.Tensor:
     idx = torch.randint(0, high, shape, generator=gen)
     with span('npp.h2d'):
-        return idx.to(device)
+        return to_device_async(idx, device)
 
 
 def _sample_fake(gen, consts: SamplerConsts, pool, pool_n, patch_num: int,

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import matmul_precision
+from ..device import matmul_precision, to_device_async
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
@@ -201,7 +201,7 @@ def image_losses(cfg, params: FitParams, pred_pix: torch.Tensor,
         cx_pred = fake_rgb * fake_mask + pred_t * (1.0 - fake_mask)
         if not all(is_val):
             with span('npp.h2d'):
-                rows = torch.tensor(is_val, device=dev)
+                rows = to_device_async(torch.tensor(is_val), dev)
             rows = rows.repeat_interleave(pk)
             cx_pred = torch.where(rows[:, None, None, None], cx_pred, pred_t)
 
@@ -223,7 +223,7 @@ def image_losses(cfg, params: FitParams, pred_pix: torch.Tensor,
                     rows = torch.cat([torch.arange(j * pk, (j + 1) * pk)
                                       for j in same])
                     with span('npp.h2d'):
-                        rows = rows.to(dev)
+                        rows = to_device_async(rows, dev)
                     pred_s, real_s, fake_s, valid_s = (
                         t[rows] for t in (pred_t, real_mask, fake_rgb, valid))
                     weight_s = None if weight is None else weight[rows]
@@ -286,7 +286,7 @@ def build_loss_fn(cfg, percep: Optional[LPIPS],
 
         # ---- pixel batch (reference: NPP_completion/train.py:172-178)
         with span('npp.h2d'):
-            pix_idx = pix_idx.to(consts.pixel_img.device)
+            pix_idx = to_device_async(pix_idx, consts.pixel_img.device)
         pix_coords = consts.pool_train[pix_idx]
         gt_rgb = consts.pixel_img[pix_coords[:, 0], pix_coords[:, 1]]
         gt_mask = consts.pixel_mask[pix_coords[:, 0], pix_coords[:, 1]]

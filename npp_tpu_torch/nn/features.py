@@ -20,6 +20,7 @@ cast per call, the input on entry).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -213,8 +214,16 @@ def cpu_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous() if x.device.type == 'cpu' else x
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats_on(dev: torch.device
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IMAGENET_MEAN and IMAGENET_STD on `dev`, copied once rather than on
+    every call: a copy to the card waits for its queue to drain."""
+    return (torch.as_tensor(IMAGENET_MEAN, device=dev),
+            torch.as_tensor(IMAGENET_STD, device=dev))
+
+
 def imagenet_normalize(img01: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std on [0,1] NHWC images."""
-    mean = torch.as_tensor(IMAGENET_MEAN, device=img01.device)
-    std = torch.as_tensor(IMAGENET_STD, device=img01.device)
+    mean, std = _imagenet_stats_on(img01.device)
     return (img01 - mean) / std

@@ -45,7 +45,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..device import matmul_precision
+from ..device import matmul_precision, to_device_async
 from ..kernels.periodic_embed import periodic_embed_batched
 from ..losses.robust import AdaptiveLossParams
 from ..models.trainer import (COMPLETION_TASK, RENDER_CHUNK, FitConsts,
@@ -338,7 +338,7 @@ def build_batched_loss_fn(cfg, percep, contextual, patch_num: int,
                 batches.append(batch)
                 idx.append(pix)
         with span('npp.h2d'):
-            pix_idx = torch.stack([p.to(dev) for p in idx])
+            pix_idx = torch.stack([to_device_async(p, dev) for p in idx])
 
         # ---- pixel batches (B, N_rand, .)
         bi = torch.arange(nb, device=dev)[:, None]

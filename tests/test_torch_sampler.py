@@ -3,6 +3,9 @@ sums and the lattice real-patch selection, on the same numpy inputs and
 centroids through `npp_tpu` and `npp_tpu_torch`. Everything after the
 random draws is integer or exact-f32 arithmetic, so the comparisons are
 exact."""
+import hashlib
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,7 @@ import torch
 from npp_tpu.models import sampler as JS
 from npp_tpu.ops import glimpse as JG
 from npp_tpu_torch.models import sampler as TS
+from npp_tpu_torch.models.trainer import draw_batch
 from npp_tpu_torch.ops import glimpse as TG
 from tests.torch_threads import few_threads  # noqa: F401  (autouse)
 
@@ -104,3 +108,42 @@ def test_sample_patches_branches_and_shapes():
             assert not b.valid[:, 1:].any()
         seen.add(b.source)
     assert seen == {TS.SOURCE_VAL, TS.SOURCE_TRAIN, TS.SOURCE_SAME}
+
+
+# eight seeded draws of draw_batch on _scene(): (branch, the fake patches'
+# top-left corners, the pixel indices' sum and first three), and a digest
+# of every index, patch and mask they drew
+DRAWS_GOLDEN = [
+    (1, [[43, 8], [82, 11]], 267916, [5660, 5333, 8205]),
+    (2, [[86, 84], [3, 101]], 257841, [4295, 4343, 2259]),
+    (2, [[7, 28], [10, 91]], 271742, [3144, 5987, 732]),
+    (2, [[46, 98], [15, 89]], 247735, [5950, 2449, 2932]),
+    (0, [[30, 62], [32, 47]], 259120, [5151, 5274, 4718]),
+    (0, [[38, 45], [41, 35]], 245582, [3603, 6431, 4365]),
+    (1, [[81, 79], [1, 34]], 272315, [896, 2469, 1110]),
+    (0, [[31, 51], [39, 35]], 296225, [6372, 7131, 1513]),
+]
+DRAWS_DIGEST = \
+    'ad7122f193a83414f86bb416dbb05d595db0cb0548a517ee922e0ae0ae91b046'
+
+
+def test_seeded_draws_match_their_golden():
+    """The fit's draws (the patches, then N_rand pixel indices) from one
+    seeded generator, with the copies to the device in between: the same
+    values, in the same order, as the golden taken before the copies were
+    staged through pinned memory. A seed above 2**31 as the benchmark's."""
+    img, mask, train, val = _scene()
+    consts = TS.build_sampler_consts(img, mask, train, val,
+                                     [[[20.0, 0.0], [0.0, 24.0]]], 32, CPU)
+    cfg = types.SimpleNamespace(N_rand=64, num_real_patch_per_sample=3,
+                                invalid_ratio=0.3, no_reg_sampling=False)
+    gen = torch.Generator().manual_seed(2 ** 31 + 7)
+    digest = hashlib.sha256()
+    for source, corners, pix_sum, pix_head in DRAWS_GOLDEN:
+        b, pix = draw_batch(cfg, gen, consts, consts.pool_train_n, 2, 32)
+        assert (b.source, b.fake_coords[:, 0, 0].tolist(), int(pix.sum()),
+                pix[:3].tolist()) == (source, corners, pix_sum, pix_head)
+        for t in (pix, b.fake_coords, b.fake_rgb, b.fake_mask, b.real_rgb,
+                  b.real_mask, b.valid):
+            digest.update(t.contiguous().numpy().tobytes())
+    assert digest.hexdigest() == DRAWS_DIGEST

@@ -3,8 +3,10 @@ the CPU: with no profiler a span is a no-op that records nothing; under
 one, a few steps of a tiny fit (one image, and the batched path) record
 every phase nested under its step, the same names land in the profiler's
 Chrome trace, and PyTorch's sync warnings are counted against the
-innermost open span while every other warning passes through. One test
-counts a real blocking copy on the card (marker `cuda`)."""
+innermost open span while every other warning passes through. The step
+copies to the device exactly the draws of its generators. On the card
+(marker `cuda`): a real blocking copy is counted, and the fit's steps
+copy their draws without a sync."""
 import json
 import warnings
 
@@ -14,11 +16,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from npp_tpu_torch import config as TC
+from npp_tpu_torch import device as TD
+from npp_tpu_torch.models import sampler, trainer
 from npp_tpu_torch.models.loaders import TaskData
 from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
-from npp_tpu_torch.models.trainer import (COMPLETION_TASK, init_fit_state,
-                                          make_fit_block, make_render)
+from npp_tpu_torch.models.trainer import (COMPLETION_TASK, draw_batch,
+                                          init_fit_state, make_fit_block,
+                                          make_render)
 from npp_tpu_torch.nn.embedder import make_task_embedder
+from npp_tpu_torch.parallel import batch
 from npp_tpu_torch.parallel.batch import (init_batched_state,
                                           make_batched_fit_block,
                                           stack_consts, stack_embedders)
@@ -67,27 +73,80 @@ def parts():
     return cfg, datas, build_components(cfg, datas[0], CPU, COMPLETION_TASK)
 
 
-def _fit(parts, entry, block):
-    """(run_block, state, feed) of a tiny fit: one image through
-    make_fit_block, or two stacked through make_batched_fit_block."""
+def _fit(parts, entry, block, dev=CPU):
+    """(run_block, state, feed) of a tiny fit on `dev` (parts' components
+    built there): one image through make_fit_block, or two stacked through
+    make_batched_fit_block."""
     cfg, datas, comps = parts
-    state = init_fit_state(cfg, comps.model, comps.percep, CPU, comps.style)
+    state = init_fit_state(cfg, comps.model, comps.percep, dev, comps.style)
     if entry == 'single':
-        consts = make_fit_consts(cfg, datas[0], 16, CPU, COMPLETION_TASK)
+        consts = make_fit_consts(cfg, datas[0], 16, dev, COMPLETION_TASK)
         run = make_fit_block(cfg, comps.embedder, consts, comps.percep,
                              comps.contextual, cfg.patch_num, 16, block)
         return run, state, torch.Generator().manual_seed(1)
     emb_b = stack_embedders([make_task_embedder(
         cfg, np.asarray(d.selected_angles), np.asarray(d.selected_periods),
-        d.img.shape[:2], torch.Generator().manual_seed(cfg.seed), CPU)
+        d.img.shape[:2], torch.Generator().manual_seed(cfg.seed), dev)
         for d in datas])
-    consts = stack_consts([make_fit_consts(cfg, d, 16, CPU, COMPLETION_TASK)
+    consts = stack_consts([make_fit_consts(cfg, d, 16, dev, COMPLETION_TASK)
                            for d in datas])
     run = make_batched_fit_block(cfg, emb_b, consts, comps.percep,
                                  comps.contextual, cfg.patch_num, 16, block,
                                  grid_hw=(40, 48), table=torch.float32)
     return (run, init_batched_state(cfg, state, len(datas)),
             [torch.Generator().manual_seed(1) for _ in datas])
+
+
+def _staging(monkeypatch):
+    """Every copy the fit stages through device.py::to_device_async, as
+    (a copy of the host tensor, the result), in call order."""
+    seen = []
+
+    def stage(t, dev):
+        out = TD.to_device_async(t, dev)
+        seen.append((t.clone(), out))
+        return out
+
+    for module in (sampler, trainer, batch):
+        monkeypatch.setattr(module, 'to_device_async', stage)
+    return seen
+
+
+def _replayed_draws(parts, entry, steps, skip):
+    """(fake-patch centre indices, pixel indices) that `steps` steps of
+    _fit's block draw after `skip` steps, replayed on the host from
+    generators seeded alike: per step, each image's draw_batch in turn."""
+    cfg, datas, _ = parts
+    n = 1 if entry == 'single' else len(datas)
+    samplers = [make_fit_consts(cfg, d, 16, CPU, COMPLETION_TASK)
+                for d in datas[:n]]
+    gens = [torch.Generator().manual_seed(1) for _ in range(n)]
+    pixels = []
+    with pytest.MonkeyPatch.context() as mp:
+        seen = _staging(mp)
+        for _ in range(skip + steps):
+            for c, g in zip(samplers, gens):
+                _, pix = draw_batch(cfg, g, c.sampler, c.pool_train_n,
+                                    cfg.patch_num, 16)
+                pixels.append(pix)
+    return [t for t, _ in seen][skip * n:], pixels[skip * n:]
+
+
+def _check_staged(seen, parts, entry, steps, skip=0):
+    """The staged copies of `steps` steps after `skip` are the host draws,
+    value for value and dtype for dtype, on the fit's device: the pixel
+    indices (N_rand of them) and the fake-patch centres, each in the order
+    the generators drew them."""
+    cfg = parts[0]
+    centres, pixels = _replayed_draws(parts, entry, steps, skip)
+    for host, out in seen:
+        assert out.dtype == host.dtype and out.shape == host.shape
+        assert torch.equal(out.cpu(), host)
+    got_pix = [h for h, _ in seen if h.numel() == cfg.N_rand]
+    got_cent = [h for h, _ in seen if h.numel() != cfg.N_rand]
+    assert len(got_pix) == len(pixels) and len(got_cent) == len(centres)
+    assert all(torch.equal(a, b) for a, b in zip(got_pix, pixels))
+    assert all(torch.equal(a, b) for a, b in zip(got_cent, centres))
 
 
 def _ancestors(spans, i):
@@ -153,6 +212,15 @@ def test_profiled_steps_nest_under_their_step(parts, entry, tmp_path,
     with open(tmp_path / 'spans.json') as f:
         saved = json.load(f)
     assert saved['steps'] == 8 and len(saved['spans']) == len(spans)
+
+
+@pytest.mark.parametrize('entry', ['single', 'batched'])
+def test_the_step_copies_its_generators_draws(parts, entry, monkeypatch):
+    run, state, feed = _fit(parts, entry, 3)
+    seen = _staging(monkeypatch)
+    run(state, feed)
+    assert all(out.device == CPU for _, out in seen)
+    _check_staged(seen, parts, entry, 3)
 
 
 def test_record_kept_until_the_next_profiled_run(parts, fresh_record):
@@ -248,3 +316,44 @@ def test_a_blocking_copy_counts_on_the_card(fresh_record):
     assert torch.cuda.get_sync_debug_mode() == before
     counts = {s.name: s.syncs for s in fresh_record.spans}
     assert counts == {'npp.block': 0, 'npp.h2d': 1, 'npp.draw': 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('entry', ['single', 'batched'])
+def test_the_fit_step_never_syncs_on_the_card(entry, tmp_path, monkeypatch,
+                                              fresh_record):
+    """After a warm-up block (kernel builds, the constants' one copy), the
+    fit's blocks run under sync debug mode 'error' without raising, the
+    spans count no sync in any step, and the pinned non-blocking copies
+    hold the host draws once the card has caught up."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    dev = torch.device('cuda')
+    cfg = TC.replace(TC.CompletionConfig(), **TINY)
+    datas = [_arrays(), _arrays(shift=3)]
+    parts = (cfg, datas, build_components(cfg, datas[0], dev,
+                                          COMPLETION_TASK))
+    run, state, feed = _fit(parts, entry, 4, dev)
+    run(state, feed)
+    torch.cuda.synchronize()
+    seen = _staging(monkeypatch)
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        run(state, feed)
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+    torch.cuda.synchronize()
+    assert seen and all(out.device.type == 'cuda' for _, out in seen)
+    _check_staged(seen, parts, entry, 4, skip=4)
+    with debug.trace(str(tmp_path)):
+        run(state, feed)
+    steps = [i for i, s in enumerate(fresh_record.spans)
+             if s.name == 'npp.step']
+    assert len(steps) == 4
+    in_steps = [s for i, s in enumerate(fresh_record.spans)
+                if s.name == 'npp.step' or any(
+                    a.name == 'npp.step'
+                    for a in _ancestors(fresh_record.spans, i))]
+    assert sum(s.syncs for s in in_steps) == 0
+    assert fresh_record.syncs == 0
