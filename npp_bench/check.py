@@ -214,7 +214,7 @@ def cx_numbers(side: Optional[dict], ref: Optional[dict],
                readings: Sequence) -> Dict[str, float]:
     """K3's stage numbers of `side` ({'xn', 'yn', 'z', 'dx'}: the program's
     step-1 call of its kernel, or what is put in its place) against the
-    chain on the same inputs (harness.cx_reference) and the reference's
+    chain on the same inputs (fit.py::cx_reference) and the reference's
     own features (Readings.cx_feats, one per image, in the program's
     order of images)."""
     if side is None or 'dx' not in side or ref is None or \

@@ -1,6 +1,7 @@
 """The yardstick's arithmetic: the operations of one image-step, counted
 from a configuration's published widths (never from the port's modules),
-and the least times of K2 and K3 from the cell's shapes.
+the work the fit kinds declare from them (fit_work), and the least times
+of K2 and K3 from a kind's declared work items.
 
 Counting rules (one image-step):
  - the MLP: forward 2 * rows * in * out for every dense layer, its
@@ -29,6 +30,9 @@ from typing import Dict, List, Sequence, Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SAME_PROB = 0.2        # the sampler's 'same'-batch probability
+# matmul_precision names under which the fit's f32 products run in TF32
+TF32_PRECISIONS = ('bfloat16', 'default', 'fastest', 'tensorfloat32',
+                   'bfloat16_3x', 'high')
 
 
 def peaks(device_name: str) -> Dict[str, float]:
@@ -117,6 +121,44 @@ def flops_per_image_step(config: dict) -> Dict[str, float]:
     return out
 
 
+def fit_work(config: dict, images: int) -> dict:
+    """The work of a fit of `images` stacked images, as a kind declares it
+    (programs/__init__.py): the operations of one image-step, the peak its
+    products run at (TF32 under the TF32 matmul precisions, else f32), and
+    the kernels' work items of one step: K2 on every snake layer over the
+    step's rows, K3 at N = images x patches x real patches per patch
+    samples of P = Q = (patch / downsample)^2 positions, its gradient in x
+    only (the real side takes none), in TF32."""
+    sh = step_shapes(config)
+    peak = 'tf32' if config['config']['matmul_precision'] in TF32_PRECISIONS \
+        else 'f32'
+    kernels = {'K2': [{'rows': images * sh['rows'], 'width': w,
+                       'precision': 'f32'}
+                      for w in snake_layers(config['mlp'])]}
+    cx = config['towers'].get('contextual')
+    if cx:
+        p = (sh['patch'] // cx['downsample']) ** 2
+        kernels['K3'] = [{'n': images * sh['pk'], 'p': p, 'q': p,
+                          'c': cx['channels'], 'dx': True, 'dy': False,
+                          'masked': False, 'precision': 'tf32'}]
+    return {'flops': flops_per_image_step(config), 'peak': peak,
+            'kernels': kernels}
+
+
+def work_of(ctx) -> dict:
+    """The run's declared work, ctx.work (the kind's `work`). A context
+    that carries none, as the readers' first test builds one by hand
+    around a fit's configuration, is given the fits' own."""
+    work = getattr(ctx, 'work', None)
+    return fit_work(ctx.config, ctx.images) if work is None else work
+
+
+def kernel_items(ctx, kernel: str) -> list:
+    """The work items of `kernel` ('K2', 'K3') the run declares; empty
+    where it declares none."""
+    return work_of(ctx).get('kernels', {}).get(kernel) or []
+
+
 # ---- least times ------------------------------------------------------------
 
 
@@ -125,34 +167,57 @@ def least_time(ops: float, nbytes: float, peak_ops: float,
     return max(ops / peak_ops, nbytes / peak_bytes)
 
 
-def k2_bounds(rows: int, width: int, pk: Dict[str, float]
-              ) -> Tuple[float, float]:
+def k2_bounds(rows: int, width: int, pk: Dict[str, float],
+              precision: str = 'f32') -> Tuple[float, float]:
     """(forward s, backward s) of K2 on (rows, width): the forward reads
     the product and the bias and writes the activation, the backward reads
     the upstream gradient, the product and the bias and writes the input
-    gradient (4-byte values; the bias's gradient is a sum outside K2)."""
+    gradient (4-byte values; the bias's gradient is a sum outside K2); its
+    operations over the `precision` peak."""
     mn, n = float(rows) * width, float(width)
-    fwd = least_time(5.0 * mn, 4.0 * (2 * mn + n), pk['f32'],
+    fwd = least_time(5.0 * mn, 4.0 * (2 * mn + n), pk[precision],
                      pk['hbm_bytes_per_s'])
-    bwd = least_time(8.0 * mn, 4.0 * (3 * mn + n), pk['f32'],
+    bwd = least_time(8.0 * mn, 4.0 * (3 * mn + n), pk[precision],
                      pk['hbm_bytes_per_s'])
     return fwd, bwd
+
+
+def k2_least(item: dict, pk: Dict[str, float]) -> float:
+    """Least seconds a step of one K2 work item {'rows', 'width',
+    'precision', 'per_step'}: forward and backward."""
+    fwd, bwd = k2_bounds(item['rows'], item['width'], pk,
+                         item.get('precision', 'f32'))
+    return (fwd + bwd) * item.get('per_step', 1)
 
 
 def k3_bounds(n: int, p: int, q: int, c: int, pk: Dict[str, float],
               need_dx: bool = True, need_dy: bool = False,
-              mask: bool = False) -> Tuple[float, float]:
+              mask: bool = False, precision: str = 'tf32'
+              ) -> Tuple[float, float]:
     """(forward s, backward s) of K3 at N samples of P x Q positions and C
-    channels in TF32: the forward reads xn, yn (and the mask) and writes
-    z, one product; the backward reads xn, yn and g and writes each
-    gradient asked for, one product each."""
+    channels, its products at the `precision` peak (TF32 in the fits, f32
+    FFMA in the search's eval): the forward reads xn, yn (and the mask)
+    and writes z, one product; the backward reads xn, yn and g and writes
+    each gradient asked for, one product each."""
     xb, yb = 4.0 * n * p * c, 4.0 * n * q * c
     prod = 2.0 * n * p * q * c
     fwd = least_time(prod, xb + yb + 4.0 * n * q + (4.0 * n * p if mask
                                                     else 0.0),
-                     pk['tf32'], pk['hbm_bytes_per_s'])
+                     pk[precision], pk['hbm_bytes_per_s'])
     outs = (xb if need_dx else 0.0) + (yb if need_dy else 0.0)
     bwd = least_time(prod * (int(need_dx) + int(need_dy)),
-                     xb + yb + 4.0 * n * q + outs, pk['tf32'],
+                     xb + yb + 4.0 * n * q + outs, pk[precision],
                      pk['hbm_bytes_per_s'])
     return fwd, bwd
+
+
+def k3_least(item: dict, pk: Dict[str, float]) -> float:
+    """Least seconds a step of one K3 work item {'n', 'p', 'q', 'c', 'dx',
+    'dy', 'masked', 'precision', 'per_step'}: the forward, and the
+    backward where a gradient is wanted."""
+    fwd, bwd = k3_bounds(item['n'], item['p'], item['q'], item['c'], pk,
+                         need_dx=item['dx'], need_dy=item['dy'],
+                         mask=item['masked'],
+                         precision=item.get('precision', 'tf32'))
+    return (fwd + (bwd if item['dx'] or item['dy'] else 0.0)) * \
+        item.get('per_step', 1)

@@ -3,29 +3,32 @@ check against the plain reference, and the result line.
 
 Everything a cell is made of is found by name: the cell in
 BENCHMARK.json names its configuration (whose file BENCHMARK.json gives)
-and its traffic (traffic/<name>.json); its limits are limits/<cell>.json;
-each per-layer metric is metrics/<name>.py, a `read(ctx)` that returns a
-number or None. A new configuration, traffic mix, cell or metric is new
-files and entries; no file here changes.
+and its traffic (traffic/<name>.json); the traffic's `entry` names the
+kind of program, programs/<entry>.py (harness.kind; programs/__init__.py
+says what a kind provides: its inputs, build, first block, check, limits,
+work and calibration); its limits are limits/<cell>.json; each per-layer
+metric is metrics/<name>.py, a `read(ctx)` that returns a number or None
+from the trace and the kind's declared work. A new kind of program,
+configuration, traffic mix, cell or metric is new files and entries; no
+file here changes.
 
-The run (`run_cell`):
- 1. makes the inputs from the seed (inputs.py) and the towers' weights on
-    the card, and writes the weights where the port's documented weight
-    source reads them ($NPP_TPU_WEIGHTS_DIR, under the run's TMPDIR);
- 2. builds the port's fit for the cell (program.py) and drives its first
-    block, through the block's own call and feed, reading what its first
-    steps did (program.Record); this block also builds and warms every
-    kernel and shape the window uses, and ends the set-up;
+The run (`run_cell`), the same for every kind:
+ 1. makes the kind's inputs from the seed (on the card) and stages what
+    the port reads from disk in the run's own directory under $TMPDIR;
+ 2. builds the kind's program for the cell and drives its first block
+    through the block's own call and feed, read by the kind; this block
+    also builds and warms every kernel and shape the window uses, and
+    ends the set-up;
  3. runs blocks back to back, with no host sync inside, until `seconds`
     have passed, then synchronises: image_steps_per_s is every
     image-step enqueued in the window over the window's wall, and
     peak_mem_gib the allocator's peak over the window;
  4. with trace, profiles one more block (trace.py) and reads the
     per-layer metrics;
- 5. frees the program and runs the reference over the same inputs for
-    the steps the program's first block was read at (reference/fit.py),
-    and the CX chain on the inputs of the program's first call of K3,
-    and compares (check.py).
+ 5. frees the program and runs the kind's check: its plain reference over
+    the same inputs, compared with what the first block read.
+The fits' kinds are programs/fit_block.py and batched_fit_block.py
+(fit.py, program.py, check.py, inputs.py, reference/).
 """
 from __future__ import annotations
 
@@ -46,9 +49,6 @@ BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
 GIB = float(1 << 30)
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'npp_tpu')
-# matmul_precision names under which the fit's f32 products run in TF32
-TF32_PRECISIONS = ('bfloat16', 'default', 'fastest', 'tensorfloat32',
-                   'bfloat16_3x', 'high')
 
 
 def load_json(path: str) -> dict:
@@ -134,100 +134,82 @@ def log(msg: str) -> None:
     print(f'[npp_bench] {msg}', file=sys.stderr, flush=True)
 
 
-def _sync(device) -> None:
+def sync(device) -> None:
     import torch
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
 
 
-def cell_inputs(config: dict, traffic: dict, seed: int, device):
-    """(the images' arrays, the towers' weights on `device`, the fit's
-    seed) of a run with `seed`."""
-    from . import inputs
-    base = inputs.data_seed(seed)
-    img = config['image']
-    make = inputs.MAKERS[img['maker']]
-    kw = {'patch_size': img['patch_size']} if img['maker'] == 'completion' \
-        else {}
-    arrays = [make(base + off, img['height'], img['width'], **kw)
-              for off in traffic['image_seed_offsets']]
-    return arrays, inputs.tower_weights(seed, device), base
+def kind(entry: str, bench_dir: str = BENCH):
+    """programs/<entry>.py, the kind of program a traffic file's `entry`
+    names (programs/__init__.py: what it provides)."""
+    path = os.path.join(bench_dir, 'programs', f'{entry}.py')
+    if not os.path.exists(path):
+        raise KeyError(f'no kind of program {entry!r}: {path} is missing')
+    name = f'npp_bench_program_{entry}'
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @contextlib.contextmanager
-def weights_dir(weights):
-    """The weights written as the port's weight source reads them, in a
-    directory under $TMPDIR (else the benchmark's .tmp/) named by
-    $NPP_TPU_WEIGHTS_DIR, removed on exit."""
-    from . import inputs
+def run_dir():
+    """The run's own directory (what a kind stages for the port, the
+    trace), under $TMPDIR (else the benchmark's .tmp/), removed on exit."""
     tmp_root = os.environ.get('TMPDIR') or os.path.join(BENCH, '.tmp')
     os.makedirs(tmp_root, exist_ok=True)
     work = tempfile.mkdtemp(prefix='npp_bench-', dir=tmp_root)
     try:
-        inputs.write_weights(weights, work)
-        os.environ['NPP_TPU_WEIGHTS_DIR'] = work
-        os.environ.pop('NPP_TPU_TORCH_WEIGHTS', None)
         yield work
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def first_block(config: dict, traffic: dict, arrays, base: int, device):
-    """The port's fit for the cell and its first block, driven through the
-    block's own call and feed and read by program.Record (on the host)."""
-    from . import program
+def first_block(program, config: dict, traffic: dict, inputs, device):
+    """(the program of the kind `program` for the cell, what the kind read
+    of its first block, driven through the block's own call and feed, and
+    the times of both)."""
     t = time.perf_counter()
-    fit = program.build(config, traffic, arrays, base, device)
-    _sync(device)
+    fit = program.build(config, traffic, inputs, device)
+    sync(device)
     built = time.perf_counter() - t
-    rec = program.Record(
-        stacked=fit.stacked,
-        wait_same=bool(config['config']['use_perceptual_loss']),
-        limit=min(program.MAX_FOLLOW, fit.block))
-    rec.begin(fit.state)
-    with program.recording(rec):
-        fit.run_block(fit.state, fit.feed)
-    _sync(device)
-    rec.to_host()
+    rec = program.first_block(fit, config, traffic, device)
     return fit, rec, {'build_s': built,
                       'first_block_s': time.perf_counter() - t - built}
+
+
+def cell_inputs(config: dict, traffic: dict, seed: int, device):
+    """The fit kinds' inputs as (arrays, weights, fit seed):
+    fit.py::cell_inputs."""
+    from . import fit
+    return fit.cell_inputs(config, traffic, seed, device)
 
 
 def reference_readings(config: dict, arrays, base: int, weights, steps: int,
                        device, control: bool = False,
                        fault: Optional[str] = None) -> list:
-    """The reference's Readings of each image over `steps` steps, in f32
-    with TF32 off (bf16 autocast for the control)."""
-    import torch
-
-    from .reference import fit as reference
-    cfg = dict(config['config'], seed=base)
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        return [reference.reference_steps(config['task'], a, cfg, weights,
-                                          steps, device, control, fault)
-                for a in arrays]
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+    """The fit kinds' reference Readings: fit.py::reference_readings."""
+    from . import fit
+    return fit.reference_readings(config, arrays, base, weights, steps,
+                                  device, control, fault)
 
 
-def cx_reference(cx: Optional[dict], device,
-                 control: bool = False) -> Optional[dict]:
-    """The reference's chain on the inputs of the program's step-1 call
-    of K3 (reference/fit.py::cx_stage): its z and dx, and its z with the
-    inputs rounded to TF32 (z_tf32); None without a call."""
-    if cx is None or 'dz' not in cx:
-        return None
-    from .reference import fit as reference
-    args = (cx['xn'], cx['yn'], cx['dz'], cx['band_width'], device)
-    out = reference.cx_stage(*args, control)
-    if not control:
-        out['z_tf32'] = reference.cx_stage(*args, tf32_inputs=True)['z']
-    return out
+def reader_context(summary, rate: Optional[float], step_s: float,
+                   config: dict, traffic: dict, images: int, work: dict,
+                   device_name: str, bench_dir: str = BENCH
+                   ) -> SimpleNamespace:
+    """What a per-layer reader reads: the profile's Summary, the window's
+    rate and step time, the kind's declared work, the card's peaks, and
+    metrics/kernel_groups.json's groups by name."""
+    from . import flops
+    groups = dict(load_json(os.path.join(bench_dir, 'metrics',
+                                         'kernel_groups.json'))['groups'])
+    return SimpleNamespace(
+        summary=summary, rate=rate, step_s=step_s, config=config,
+        traffic=traffic, images=images, work=work,
+        peaks=flops.peaks(device_name), group=lambda g: groups[g])
 
 
 def apply_overrides(config: dict, traffic: dict, overrides: Optional[dict]):
@@ -252,13 +234,14 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     process started. `overrides` (tests only): apply_overrides."""
     import torch
 
-    from . import check, flops
+    from . import check
     from . import trace as tracing
 
     t_import = since_start()
     spec = cell_spec(load_benchmark(root), cell, root, bench_dir)
     config, traffic = apply_overrides(spec.config, spec.traffic, overrides)
-    limits = check.load_limits(bench_dir, cell)
+    program = kind(traffic['entry'], bench_dir)
+    limits = program.limits(bench_dir, cell)
     dev = torch.device(device or 'cuda')
     diag: Dict[str, object] = {'cell': cell, 'seed': seed,
                                'imports_s': t_import,
@@ -270,14 +253,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     diag['cuda_init_s'] = since_start() - t_import
 
     t = time.perf_counter()
-    arrays, weights, base = cell_inputs(config, traffic, seed, dev)
-    with weights_dir(weights) as work:
-        # the reference's copy waits on the host, out of the window's peak
-        weights = {k: {n: (w.cpu(), b.cpu()) for n, (w, b) in c.items()}
-                   for k, c in weights.items()}
-        _sync(dev)
+    inputs = program.make_inputs(config, traffic, seed, dev)
+    with run_dir() as work, program.staged(inputs, work):
+        sync(dev)
         diag['inputs_s'] = time.perf_counter() - t
-        fit, rec, times = first_block(config, traffic, arrays, base, dev)
+        fit, rec, times = first_block(program, config, traffic, inputs, dev)
         diag.update(times, table=fit.table)
         setup_s = since_start()
 
@@ -294,7 +274,7 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
             marks.append(time.perf_counter())
             if marks[-1] - t0 >= seconds:
                 break
-        _sync(dev)
+        sync(dev)
         window = time.perf_counter() - t0
         host_after = host_state()
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == 'cuda' \
@@ -328,19 +308,9 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    weights = {k: {n: (w.to(dev), b.to(dev)) for n, (w, b) in c.items()}
-               for k, c in weights.items()}
-    readings = reference_readings(config, arrays, base, weights,
-                                  rec.followed, dev)
-    prog = check.program_values(rec)
-    numbers = check.compare(prog, readings)
-    numbers.update(check.cx_numbers(rec.cx, cx_reference(rec.cx, dev),
-                                    readings))
+    numbers, check_diag = program.check(config, traffic, inputs, rec, dev)
     correct = check.verdict(numbers, limits)
-    diag['worst_leaves'] = check.worst_leaves(prog, readings)
-    diag.update(reference_s=time.perf_counter() - t, followed=rec.followed,
-                sources=rec.sources, program_losses=rec.losses,
-                reference_losses=[r.losses for r in readings])
+    diag.update(check_diag, reference_s=time.perf_counter() - t)
 
     # ---- the result
     names = {m['name'] for m in spec.end_to_end}
@@ -353,18 +323,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
                    for n in ('image_steps_per_s', 'peak_mem_gib', 'setup_s')
                    if n in names}
     else:
-        pk = flops.peaks(torch.cuda.get_device_name(dev)
-                         if dev.type == 'cuda' else 'cpu')
-        groups = dict(load_json(os.path.join(bench_dir, 'metrics',
-                                             'kernel_groups.json'))['groups'])
-        ctx = SimpleNamespace(
-            summary=summary, rate=rate, step_s=window / steps,
-            config=config, traffic=traffic,
-            images=images, shapes=flops.step_shapes(config), peaks=pk,
-            flops=flops.flops_per_image_step(config),
-            matmul_peak=pk['tf32'] if config['config']['matmul_precision']
-            in TF32_PRECISIONS else pk['f32'],
-            group=lambda g: groups[g])
+        ctx = reader_context(
+            summary, rate, window / steps, config, traffic, images,
+            program.work(config, traffic),
+            torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu',
+            bench_dir)
         for m in spec.per_layer:
             v = reader(m['name'], bench_dir)(ctx)
             if v is not None:

@@ -1,15 +1,17 @@
 """k3_roofline: K3's (the CX chain's) least time over its device time in
 the profiled block, in %.
 
-The least time of a step is counted from the cell's shapes: N = images x
-patches x real patches per patch samples of P = Q = (patch / 4)^2
-positions and C = 256 channels (VGG19 relu3_4), one forward (the
-similarity product, x and y read, z written) and one backward for the
-gradient in x (the real side takes none), each bound by the larger of
-its operations over the TF32 peak and its bytes over the memory peak
-(flops.py::k3_bounds). The device time is that of the kernels that
-kernel_groups.json assigns to K3."""
-from npp_bench.flops import k3_bounds
+The least time of a step is counted from the K3 work items the cell's kind
+declares (its `work`): N samples of P x Q positions and C channels, the
+gradients wanted, the mask and the precision of the product. In the fits:
+N = images x patches x real patches per patch, P = Q = (patch / 4)^2, C =
+256 (VGG19 relu3_4), one forward (the similarity product, x and y read, z
+written) and one backward for the gradient in x (the real side takes
+none), in TF32. Each is bound by the larger of its operations over the
+precision's peak and its bytes over the memory peak (flops.py::k3_bounds).
+The device time is that of the kernels that kernel_groups.json assigns to
+K3. None where the kind declares no K3 work."""
+from npp_bench.flops import k3_least, kernel_items
 
 GROUP = 'K3 cx_chain'
 
@@ -19,11 +21,8 @@ def read(ctx):
     if s is None:
         return None
     busy = s.kernel_seconds(ctx.group(GROUP))
-    cx = ctx.config['towers'].get('contextual')
-    if busy <= 0 or not cx:
+    items = kernel_items(ctx, 'K3')
+    if busy <= 0 or not items:
         return None
-    sh = ctx.shapes
-    p = (sh['patch'] // cx['downsample']) ** 2
-    fwd, bwd = k3_bounds(ctx.images * sh['pk'], p, p, cx['channels'],
-                         ctx.peaks)
-    return 100.0 * (fwd + bwd) * s.steps / busy
+    least = sum(k3_least(it, ctx.peaks) for it in items)
+    return 100.0 * least * s.steps / busy

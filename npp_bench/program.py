@@ -1,18 +1,24 @@
-"""The system under test: the port's fit of a cell, built as its own
+"""The system under test of the two fit kinds (programs/fit_block.py,
+programs/batched_fit_block.py): the port's fit of a cell, built as its own
 entries build it, and the hooks that read what its first steps did.
 
-Two entries, named by a traffic file's `entry`:
- - 'fit_block': `models/trainer.py::make_fit_block`'s run_block for one
-   image, built as `models/pipeline.py::fit_image` builds its first stage
-   (components, FitState, FitConsts at the loader's patch size, the batch
-   generator seeded with the fit's seed + 1);
- - 'batched_fit_block': `parallel/batch.py::make_batched_fit_block`'s
-   run_block for B images, built as `parallel/runner.py::fit_images`
-   builds one bucket (the images' embedders stacked, one FitState stacked
-   B times, a generator per image, the canvas table under the runner's
-   size guard over the B tables together).
+`build` makes one of two programs, as the kind asks:
+ - one image (kind 'fit_block'): `models/trainer.py::make_fit_block`'s
+   run_block, built as `models/pipeline.py::fit_image` builds its first
+   stage (components, FitState, FitConsts at the loader's patch size, the
+   batch generator seeded with the fit's seed + 1);
+ - B images stacked (kind 'batched_fit_block'):
+   `parallel/batch.py::make_batched_fit_block`'s run_block, built as
+   `parallel/runner.py::fit_images` builds one bucket (the images'
+   embedders stacked, one FitState stacked B times, a generator per image,
+   the canvas table under the runner's size guard over the B tables
+   together).
 The blocks are built once, at the configuration's starting patch size.
-Everything outside the blocks runs in full f32, as in a fit.
+Everything outside the blocks runs in full f32, as in a fit. A kind
+(programs/__init__.py) provides its inputs, build, first block, check,
+limits, work and calibration; `build` here is the fit kinds' build, and the
+harness reads the Fit's run_block, state, feed, images, block and table
+(the rest is the fit kinds' own, fit.py).
 """
 from __future__ import annotations
 
@@ -51,11 +57,15 @@ def _config(config: dict, seed: int):
 
 
 def _task(config: dict):
+    """The port's task of a fit configuration: completion or remapping,
+    the fits the reference follows (reference/fit.py::task_of)."""
     if config['task'] == 'remapping':
         from npp_tpu_torch.models.remapping import REMAPPING_TASK
         return REMAPPING_TASK
-    from npp_tpu_torch.models.trainer import COMPLETION_TASK
-    return COMPLETION_TASK
+    if config['task'] == 'completion':
+        from npp_tpu_torch.models.trainer import COMPLETION_TASK
+        return COMPLETION_TASK
+    raise ValueError(f'no fit of the task {config["task"]!r}')
 
 
 def task_data(config: dict, arrays: dict, cfg, device):
@@ -73,9 +83,10 @@ def task_data(config: dict, arrays: dict, cfg, device):
 
 
 def build(config: dict, traffic: dict, arrays: List[dict], seed: int,
-          device) -> Fit:
+          device, stacked: bool) -> Fit:
     """The cell's fit on `device`, from the benchmark's arrays (one dict
-    per image)."""
+    per image): the single-image block, or with `stacked` the batched
+    one."""
     from npp_tpu_torch.device import matmul_precision
     from npp_tpu_torch.models.pipeline import build_components, make_fit_consts
     from npp_tpu_torch.models.trainer import (init_fit_state, make_fit_block,
@@ -89,7 +100,7 @@ def build(config: dict, traffic: dict, arrays: List[dict], seed: int,
         if ps != config['image']['patch_size']:
             raise ValueError(f'the loader gives patch {ps}, the configuration '
                              f'file says {config["image"]["patch_size"]}')
-        if traffic['entry'] == 'fit_block':
+        if not stacked:
             comps = build_components(cfg, datas[0], device, task)
             state = init_fit_state(cfg, comps.model, comps.percep, device,
                                    comps.style)
@@ -100,7 +111,7 @@ def build(config: dict, traffic: dict, arrays: List[dict], seed: int,
                                        task)
             feed = torch.Generator().manual_seed(cfg.seed + 1)
             dtype = table_dtype(cfg, comps.embedder, block)
-        elif traffic['entry'] == 'batched_fit_block':
+        else:
             from npp_tpu_torch.nn.embedder import make_task_embedder
             from npp_tpu_torch.parallel.batch import (init_batched_state,
                                                       make_batched_fit_block,
@@ -125,15 +136,12 @@ def build(config: dict, traffic: dict, arrays: List[dict], seed: int,
                 table=dtype)
             feed = [torch.Generator().manual_seed(cfg.seed + 1)
                     for _ in datas]
-        else:
-            raise ValueError(f'unknown entry {traffic["entry"]!r}')
 
     def run(state_, feed_):
         with matmul_precision('float32'):
             return run_block(state_, feed_)
 
-    return Fit(run, state, feed, len(datas),
-               traffic['entry'] == 'batched_fit_block', block, ps,
+    return Fit(run, state, feed, len(datas), stacked, block, ps,
                None if dtype is None else str(dtype).split('.')[-1])
 
 

@@ -1,0 +1,11 @@
+"""The kind 'fit_block': one image's fit, `models/trainer.py::make_fit_block`'s
+run_block, built as `models/pipeline.py::fit_image` builds its first stage
+(program.py). Every other step is the fit kinds' shared code (fit.py)."""
+from npp_bench import program
+from npp_bench.fit import (calibrate, check, first_block, limits,  # noqa: F401
+                           make_inputs, staged, work)
+
+
+def build(config: dict, traffic: dict, inputs, device) -> program.Fit:
+    return program.build(config, traffic, inputs.arrays, inputs.base, device,
+                         stacked=False)
