@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points, the matmul precision
-scope of the fit, the fit's host-to-card copies, and the cards' published
-peaks that bounds and MFU are taken against.
+scope of the fit, the fit's host-to-card copies, the side stream and pool
+of its CUDA graphs, and the cards' published peaks that bounds and MFU are
+taken against.
 
 Entry points run on the card unless the caller asks for the CPU. With no
 card and no explicit CPU request they raise: a silent CPU fallback would
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import subprocess
 from typing import Dict, Iterator, Optional, Tuple, Union
 
@@ -45,6 +47,31 @@ def to_device_async(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
     if dev.type != 'cuda':
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _graph_home(index: int) -> tuple:
+    dev = torch.device('cuda', index)
+    stream, keeper = torch.cuda.Stream(dev), torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        keeper.capture_begin(capture_error_mode='thread_local')
+        torch.zeros(1, device=dev)
+        keeper.capture_end()
+    return stream, keeper
+
+
+def graph_home(dev: torch.device) -> tuple:
+    """(side stream, keeper graph) of a card's CUDA graphs, made at first
+    use and kept. A capture cannot run on the default stream. Captures
+    share the keeper's memory pool (`pool=keeper.pool()`): the keeper (one
+    fill, never replayed) keeps the pool alive, so a capture finds the
+    blocks the last one freed, and the pool holds what the largest capture
+    needed, for the life of the process. A graph's own pool would be
+    cudaFree'd only by torch.cuda.empty_cache, which frees every other
+    cached block too, so each capture, and the phase after it, would
+    cudaMalloc anew."""
+    return _graph_home(torch.cuda.current_device() if dev.index is None
+                       else dev.index)
 
 
 # matmul_precision names as jax.default_matmul_precision takes them, and

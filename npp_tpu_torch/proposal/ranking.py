@@ -42,7 +42,9 @@ import torch
 from torch import nn
 
 from ..config import nerf_embed_dim, periodic_embed_dim
-from ..device import matmul_precision, resolve_device
+from ..device import (graph_home, matmul_precision, resolve_device,
+                      to_device_async)
+from ..kernels import add_launches, captured_launches
 from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
@@ -57,6 +59,7 @@ from ..utils.debug import PhaseTimer, span
 
 RENDER_CHUNK = 1 << 14
 CX_GROUP_BYTES = 1 << 33   # the CX chain's (P, P) matrices per group
+EAGER_STEPS = 4            # a card's fit steps run before the capture
 
 
 def combine_scores(cfg, comps: dict) -> dict:
@@ -208,6 +211,16 @@ def draw_indices(gen: torch.Generator, n_pool: int,
                  n_rand: int) -> torch.Tensor:
     """One step's pixel batch: n_rand indices into the training pool."""
     return torch.randint(0, n_pool, (n_rand,), generator=gen)
+
+
+def draw_block(pools: Sequence[torch.Tensor], gens: Sequence[torch.Generator],
+               n_rand: int, n_iters: int) -> torch.Tensor:
+    """Every step's pixel batches at once, (n_iters, B, n_rand) on the host:
+    draw_indices called step by step and, within a step, image by image,
+    as the step loop calls it, so the values are the loop's."""
+    return torch.stack([torch.stack([draw_indices(g, len(pool), n_rand)
+                                     for pool, g in zip(pools, gens)])
+                        for _ in range(n_iters)])
 
 
 def fit_candidates(params: RankParams, lat: Lattices, img: torch.Tensor,
@@ -410,9 +423,13 @@ def fit_candidates_suite(params: RankParams, lats: Sequence[Lattices],
     candidate of every image, the forward and backward under
     cfg.matmul_precision. Returns the per-step loss, the mean over all the
     candidates, (n_iters,) on the device. Each step is a span npp.step
-    (utils/debug.py) holding npp.draw (and in it npp.h2d, the draws'
-    blocking copy to the device), lockstep_loss's npp.mlp and
-    npp.loss.pixel, npp.backward and npp.adam."""
+    (utils/debug.py) holding npp.draw (and in it npp.h2d, the draws' move
+    to the pools' device, which the CPU makes without a copy) and
+    _lockstep_step's spans. On a card the same steps run as one CUDA
+    graph (_fit_on_card)."""
+    if imgs.device.type == 'cuda':
+        return _fit_on_card(params, lats, imgs, pools, gens, angles,
+                            periods, n_iters)
     cfg = lats[0].cfg
     opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
                            betas=(0.9, 0.999), eps=1e-8)
@@ -431,18 +448,119 @@ def fit_candidates_suite(params: RankParams, lats: Sequence[Lattices],
                     with span('npp.h2d'):
                         idx = [i.to(pool.device) for i, pool in
                                zip(idx, pools)]
-                    pix = torch.stack([pool[i] for pool, i in
-                                       zip(pools, idx)])
-                gt = imgs[bi, pix[..., 0], pix[..., 1]]        # (B, M, 3)
                 opt.zero_grad(set_to_none=True)
-                loss = lockstep_loss(params, lats, pix.to(torch.float32),
-                                     gt, angles, periods)
-                with span('npp.backward'):
-                    loss.backward()
-                with span('npp.adam'):
-                    opt.step()
-                losses.append(loss.detach() / (nb * n_cand))
+                loss = _lockstep_step(params, lats, imgs, bi, pools, idx,
+                                      angles, periods, opt)
+                losses.append(loss / (nb * n_cand))
     return torch.stack(losses)
+
+
+def _lockstep_step(params: RankParams, lats: Sequence[Lattices],
+                   imgs: torch.Tensor, bi: torch.Tensor,
+                   pools: Sequence[torch.Tensor], idx, angles: torch.Tensor,
+                   periods: torch.Tensor, opt: torch.optim.Optimizer
+                   ) -> torch.Tensor:
+    """One step of the lockstep fit on the gradients the caller zeroed:
+    each image's batch gathered at its drawn pool indices idx[j],
+    lockstep_loss (npp.mlp, npp.loss.pixel), npp.backward, npp.adam.
+    bi is arange(B)[:, None] on the device. Returns the summed loss,
+    detached."""
+    pix = torch.stack([pool[i] for pool, i in zip(pools, idx)])
+    gt = imgs[bi, pix[..., 0], pix[..., 1]]                    # (B, M, 3)
+    loss = lockstep_loss(params, lats, pix.to(torch.float32), gt, angles,
+                         periods)
+    with span('npp.backward'):
+        loss.backward()
+    with span('npp.adam'):
+        opt.step()
+    return loss.detach()
+
+
+def _fit_on_card(params: RankParams, lats: Sequence[Lattices],
+                 imgs: torch.Tensor, pools: Sequence[torch.Tensor],
+                 gens: Sequence[torch.Generator], angles: torch.Tensor,
+                 periods: torch.Tensor, n_iters: int) -> torch.Tensor:
+    """fit_candidates_suite on a card, its steps replayed from one CUDA
+    graph so that the card, not the host's dispatch, sets their pace.
+
+    Every step's draws (draw_block) and learning rate are made on the host
+    first and copied in one non-blocking copy each (npp.draw > npp.h2d); a
+    step counter on the card picks each step's from them. The first
+    EAGER_STEPS steps run eagerly on the current stream: they build K2's
+    Triton kernels and Adam's state, and whoever patches lockstep_loss
+    sees real calls; their freed blocks stay with the current stream,
+    where the eval reuses them. The next step is captured on the card's
+    side stream into the pool its captures share (device.py::graph_home;
+    npp.graph.capture), and it and every later step is a replay of that
+    graph (npp.graph.replay, inside the step's npp.step), each adding the
+    capture's launches to the kernels' counts. Adam is capturable, its
+    learning rate a card tensor: the loop's f32 arithmetic, in another
+    order. Nothing of the fit stays allocated into the eval: the graph and
+    the gradients it allocated go back to the shared pool before it
+    returns, and the cuBLAS workspaces are freed."""
+    cfg = lats[0].cfg
+    dev = imgs.device
+    schedule = make_schedule(cfg)
+    nb, n_cand = angles.shape[:2]
+    with span('npp.draw'):
+        draws = draw_block(pools, gens, cfg.N_rand, n_iters)
+        lrs = torch.tensor([schedule(s) for s in range(n_iters)],
+                           dtype=torch.float32)
+        with span('npp.h2d'):
+            draws, lrs = to_device_async(draws, dev), to_device_async(lrs, dev)
+    bi = torch.arange(nb, device=dev)[:, None]
+    t = torch.zeros(1, dtype=torch.long, device=dev)
+    lr = torch.empty(1, device=dev)
+    losses = torch.empty(n_iters, device=dev)
+    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
+                           betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    for group in opt.param_groups:   # not in the constructor: its check
+        group['lr'] = lr             # of a card tensor would sync
+
+    def step():
+        lr.copy_(lrs.index_select(0, t))
+        loss = _lockstep_step(params, lats, imgs, bi, pools,
+                              draws.index_select(0, t)[0], angles, periods,
+                              opt)
+        losses.index_copy_(0, t, loss.reshape(1) / (nb * n_cand))
+        t.add_(1)
+
+    def capture():
+        graph.capture_begin(pool=keeper.pool(),
+                            capture_error_mode='thread_local')
+        try:
+            step()
+        finally:
+            graph.capture_end()
+
+    stream, keeper = graph_home(dev)
+    here = torch.cuda.current_stream(dev)
+    graph = torch.cuda.CUDAGraph()
+    with matmul_precision(cfg.matmul_precision):
+        for i in range(n_iters):
+            with span('npp.step', i):
+                if i < EAGER_STEPS:
+                    opt.zero_grad(set_to_none=True)
+                    step()
+                    continue
+                with torch.cuda.stream(stream):
+                    if i == EAGER_STEPS:
+                        opt.zero_grad(set_to_none=True)
+                        stream.wait_stream(here)
+                        with span('npp.graph.capture'):
+                            launched = captured_launches(capture)
+                    with span('npp.graph.replay'):
+                        graph.replay()
+                        add_launches(launched)
+    opt.zero_grad(set_to_none=True)
+    del graph
+    # cuBLAS keeps a workspace for each stream it ran on, the side stream's
+    # allocated in the capture; PyTorch frees them only all at once, as its
+    # own CUDA-graph trees do (torch/_inductor/cudagraph_trees.py). The
+    # current stream's is allocated again at its next GEMM.
+    torch._C._cuda_clearCublasWorkspaces()
+    here.wait_stream(stream)
+    return losses
 
 
 def slice_rank_params(cfg, params: RankParams, j: int, n_cand: int,
