@@ -37,7 +37,8 @@ from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
 from ..losses.robust import adaptive_init, stacked_nll_mean_sum
 from ..losses.style import StyleLoss
-from ..nn.embedder import TaskEmbedder, make_embedding_table
+from ..nn.embedder import (TaskEmbedder, canvas_coords,
+                           make_embedding_table)
 from ..nn.mlp import render_activation
 from ..nn.warp import WarpField, make_warp, warp_coords
 from ..utils.debug import span
@@ -109,9 +110,14 @@ def init_fit_state(cfg, model: nn.Module, percep: Optional[LPIPS],
     warp = make_warp(cfg, torch.Generator().manual_seed(cfg.seed + 2))
     params = FitParams(model, adaptive_init(3), adaptive_percep,
                        adaptive_style, warp).to(device)
-    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
-                           betas=(0.9, 0.999), eps=1e-8)
-    return FitState(params, opt, 0)
+    return FitState(params, make_adam(params.parameters(), cfg.lrate), 0)
+
+
+def make_adam(params, lr, capturable: bool = False) -> torch.optim.Adam:
+    """Adam at the reference's betas (0.9, 0.999) and eps 1e-8, for every
+    fit of the port; capturable for a fit replayed from a CUDA graph."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=capturable)
 
 
 def embed_coords(params: FitParams, embedder, coords: torch.Tensor
@@ -345,12 +351,17 @@ def table_guard(cfg, n_values: int) -> Optional[torch.dtype]:
     return None
 
 
+def uses_table(cfg, block: int) -> bool:
+    """Whether a block of `block` steps builds its canvas table: only a
+    block of 8 steps or more, and none with the warp field (its
+    coordinates are not integers). The table's dtype is table_guard's."""
+    return block >= 8 and not getattr(cfg, 'warp_field', False)
+
+
 def table_dtype(cfg, embedder, block: int) -> Optional[torch.dtype]:
-    """The dtype of the per-block canvas table, or None to embed on the fly
-    through K1: no table for tiny blocks or with the warp field (its
-    coordinates are not integers), else table_guard's."""
-    if block < 8 or not isinstance(embedder, TaskEmbedder) \
-            or getattr(cfg, 'warp_field', False):
+    """The dtype of the per-block canvas table of one image, or None to
+    embed on the fly through K1 (uses_table, then table_guard)."""
+    if not uses_table(cfg, block) or not isinstance(embedder, TaskEmbedder):
         return None
     h, w = embedder.res
     return table_guard(cfg, int(h) * int(w) * embedder.out_dim)
@@ -365,25 +376,44 @@ def make_fit_block(cfg, embedder, consts: FitConsts, percep, contextual,
     steps run under cfg.matmul_precision (device.py::matmul_precision)."""
     loss_fn = build_loss_fn(cfg, percep, contextual, patch_num, patch_size,
                             style=style, task=task)
-    schedule = make_schedule(cfg)
     dtype = table_dtype(cfg, embedder, block)
+    return block_runner(cfg, block, loss_fn, embedder, consts,
+                        (lambda: make_embedding_table(embedder, dtype))
+                        if dtype is not None else None)
 
-    def run_block(state: FitState, gen: torch.Generator):
+
+def block_runner(cfg, block: int, loss_fn, embedder, consts,
+                 table: Optional[Callable[[], object]] = None):
+    """run_block(state, feed) -> the last step's metrics after `block`
+    fit_steps (this module's, read at each step) of loss_fn, in a span
+    npp.block: the embedding from table() under npp.table when given, then
+    a span npp.step a step. make_fit_block's and make_batched_fit_block's."""
+    schedule = make_schedule(cfg)
+
+    def run_block(state: FitState, feed):
         # npp_tpu's scope (trainer.py:139-146): every matmul and convolution
         # of the loss and of its gradient, so loss.backward() as well
         with matmul_precision(cfg.matmul_precision), span('npp.block'):
             emb = embedder
-            if dtype is not None:
+            if table is not None:
                 with span('npp.table'):
-                    emb = make_embedding_table(embedder, dtype)
+                    emb = table()
             metrics = None
             for _ in range(block):
                 with span('npp.step', state.step):
-                    metrics = fit_step(state, loss_fn, emb, consts, gen,
+                    metrics = fit_step(state, loss_fn, emb, consts, feed,
                                        schedule)
         return metrics
 
     return run_block
+
+
+def render_rows(cfg, params: FitParams, embedder, coords: torch.Tensor,
+                chunk: int) -> torch.Tensor:
+    """RGB (N, 3) of (N, 2) f32 coordinates, `chunk` rows a forward."""
+    return torch.cat([render_activation(
+        params.mlp(embed_coords(params, embedder, c)), cfg.normalize_type)
+        for c in coords.split(chunk)], 0)
 
 
 def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
@@ -394,16 +424,10 @@ def make_render(cfg, embedder, chunk: int = RENDER_CHUNK):
 
     @torch.no_grad()
     def render(params: FitParams, h: int, w: int) -> torch.Tensor:
-        dev = embedder.angles.device
-        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
-                                torch.arange(w, device=dev), indexing='ij')
-        coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+        coords = canvas_coords(h, w, embedder.angles.device)
         with matmul_precision(cfg.matmul_precision), span('npp.render'):
-            out = [render_activation(params.mlp(embed_coords(params,
-                                                             embedder, c)),
-                                     cfg.normalize_type)
-                   for c in coords.split(chunk)]
-            return torch.cat(out, 0).reshape(h, w, 3)
+            return render_rows(cfg, params, embedder, coords,
+                               chunk).reshape(h, w, 3)
 
     return render
 

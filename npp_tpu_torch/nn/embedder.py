@@ -169,6 +169,13 @@ class TableEmbedder:
             *coords_yx.shape[:-1], -1)
 
 
+def canvas_coords(h: int, w: int, device: torch.device) -> torch.Tensor:
+    """Every pixel (y, x) of an (h, w) canvas, row-major, as (h*w, 2) f32."""
+    ys, xs = torch.meshgrid(torch.arange(h, device=device),
+                            torch.arange(w, device=device), indexing='ij')
+    return torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+
+
 @torch.no_grad()
 def make_embedding_table(base: TaskEmbedder, dtype: torch.dtype = torch.float32,
                          chunk: int = 1 << 18) -> TableEmbedder:
@@ -176,10 +183,7 @@ def make_embedding_table(base: TaskEmbedder, dtype: torch.dtype = torch.float32,
     per K1 launch (one launch at 384x512; bfloat16 as npp_tpu's
     `.astype(dtype)`), and wrap it as a TableEmbedder."""
     h, w = base.res
-    dev = base.angles.device
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
-                            torch.arange(w, device=dev), indexing='ij')
-    coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+    coords = canvas_coords(h, w, base.angles.device)
     table = torch.cat([base.embed(c, dtype) for c in coords.split(chunk)], 0)
     return TableEmbedder(table=table, res=(int(h), int(w)),
                          out_dim=base.out_dim, top1_dim=base.top1_dim)

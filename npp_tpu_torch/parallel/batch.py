@@ -48,11 +48,14 @@ from torch import nn
 from ..device import matmul_precision, to_device_async
 from ..kernels.periodic_embed import periodic_embed_batched
 from ..losses.robust import AdaptiveLossParams
-from ..models.trainer import (COMPLETION_TASK, RENDER_CHUNK, FitConsts,
-                              FitParams, FitState, TaskSpec, draw_batch,
-                              embed_coords, fit_step, image_losses,
-                              make_schedule)
-from ..nn.embedder import TaskEmbedder
+# fit_step is imported for the name batch.fit_step alone: the steps call
+# models/trainer.py's (block_runner), which a caller may replace
+from ..models.trainer import (COMPLETION_TASK, RENDER_CHUNK,  # noqa: F401
+                              FitConsts, FitParams, FitState, TaskSpec,
+                              block_runner, draw_batch, fit_step,
+                              image_losses, make_adam, render_rows,
+                              uses_table)
+from ..nn.embedder import TaskEmbedder, canvas_coords
 from ..nn.mlp import StackedLinear, render_activation
 from ..utils.debug import span
 from .mesh import Mesh, gather_leading_axis
@@ -134,11 +137,8 @@ def make_batched_table(emb_b: StackedEmbedder, grid_hw: Tuple[int, int],
     values at that image's tight normalisation (batch.py:51-72): one
     batched K1 launch per `chunk` rows (one at 384x512)."""
     h, w = grid_hw
-    dev = emb_b.angles.device
     b = emb_b.angles.shape[0]
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
-                            torch.arange(w, device=dev), indexing='ij')
-    coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+    coords = canvas_coords(h, w, emb_b.angles.device)
     table = torch.cat([emb_b.embed(c.expand(b, -1, -1).contiguous(), dtype)
                        for c in coords.split(chunk)], 1)
     return StackedTableEmbedder(table=table, res=(int(h), int(w)),
@@ -245,9 +245,7 @@ def unstack_fit_state(state_b: FitState, template: FitParams,
     params = unstack_params(state_b.params, template, j)
     pairs = _param_pairs(state_b.params, params)
     opt_b = state_b.optimizer
-    group = opt_b.param_groups[0]
-    opt = torch.optim.Adam(params.parameters(), lr=group['lr'],
-                           betas=group['betas'], eps=group['eps'])
+    opt = make_adam(params.parameters(), opt_b.param_groups[0]['lr'])
     for sp, tp, tr in pairs:
         st = opt_b.state.get(sp)
         if st:
@@ -267,9 +265,7 @@ def gather_fit_state(state_b: FitState, template: FitParams, mesh: Mesh,
     together)."""
     full = stack_modules([template] * n)
     opt_b = state_b.optimizer
-    group = opt_b.param_groups[0]
-    opt = torch.optim.Adam(full.parameters(), lr=group['lr'],
-                           betas=group['betas'], eps=group['eps'])
+    opt = make_adam(full.parameters(), opt_b.param_groups[0]['lr'])
     with torch.no_grad():
         for p, pb in zip(full.parameters(), state_b.params.parameters()):
             p.copy_(gather_leading_axis(pb, mesh, axis, n))
@@ -289,9 +285,8 @@ def init_batched_state(cfg, state0: FitState, n: int) -> FitState:
     image initialises from the same seed, so their inits are equal) with
     one Adam over the stack."""
     params = stack_modules([state0.params] * n)
-    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
-                           betas=(0.9, 0.999), eps=1e-8)
-    return FitState(params, opt, state0.step)
+    return FitState(params, make_adam(params.parameters(), cfg.lrate),
+                    state0.step)
 
 
 # ---- the batched loss and step -----------------------------------------
@@ -371,29 +366,16 @@ def make_batched_fit_block(cfg, emb_b: StackedEmbedder,
                            table: Optional[torch.dtype] = None):
     """run_block(state, gens) -> the last step's metrics after `block`
     batched steps, the multi-image make_fit_block (batch.py:123-170). With
-    `table` (a dtype, the runner's guard having passed) and a block of at
-    least 8 steps without the warp field, the images' tables over the
-    bucket canvas `grid_hw` are built once per block in one K1 launch."""
+    `table` (table_guard's dtype for the B tables) where uses_table allows
+    one, the images' tables over the bucket canvas `grid_hw` are built
+    once per block in one K1 launch."""
     loss_fn = build_batched_loss_fn(cfg, percep, contextual, patch_num,
                                     patch_size, style, task, res=emb_b.res)
-    schedule = make_schedule(cfg)
-    use_table = table is not None and grid_hw is not None and block >= 8 \
-        and not getattr(cfg, 'warp_field', False)
-
-    def run_block(state: FitState, gens):
-        with matmul_precision(cfg.matmul_precision), span('npp.block'):
-            emb = emb_b
-            if use_table:
-                with span('npp.table'):
-                    emb = make_batched_table(emb_b, grid_hw, table)
-            metrics = None
-            for _ in range(block):
-                with span('npp.step', state.step):
-                    metrics = fit_step(state, loss_fn, emb, consts_b, gens,
-                                       schedule)
-        return metrics
-
-    return run_block
+    use_table = table is not None and grid_hw is not None and \
+        uses_table(cfg, block)
+    return block_runner(cfg, block, loss_fn, emb_b, consts_b,
+                        (lambda: make_batched_table(emb_b, grid_hw, table))
+                        if use_table else None)
 
 
 def make_sharded_render(cfg, embedder, mesh: Mesh, pixels_axis: str = 'pixels',
@@ -409,21 +391,15 @@ def make_sharded_render(cfg, embedder, mesh: Mesh, pixels_axis: str = 'pixels',
 
     @torch.no_grad()
     def render(params: FitParams, h: int, w: int) -> torch.Tensor:
-        dev = embedder.angles.device
-        ys, xs = torch.meshgrid(torch.arange(h, device=dev),
-                                torch.arange(w, device=dev), indexing='ij')
-        coords = torch.stack([ys, xs], -1).reshape(-1, 2).to(torch.float32)
+        coords = canvas_coords(h, w, embedder.angles.device)
         n = coords.shape[0]
         per_rank = -(-n // (parts * chunk)) * chunk
         coords = torch.cat([coords, coords.new_zeros(
             (per_rank * parts - n, 2))])
         r = mesh.index(pixels_axis)
         with matmul_precision(cfg.matmul_precision):
-            out = torch.cat([
-                render_activation(params.mlp(embed_coords(params, embedder,
-                                                          c)),
-                                  cfg.normalize_type)
-                for c in coords[r * per_rank:(r + 1) * per_rank].split(chunk)])
+            out = render_rows(cfg, params, embedder,
+                              coords[r * per_rank:(r + 1) * per_rank], chunk)
         return gather_leading_axis(out, mesh, pixels_axis, n).reshape(h, w, 3)
 
     return render

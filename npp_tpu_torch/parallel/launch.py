@@ -38,7 +38,8 @@ from torch import nn
 
 from ..device import matmul_precision, resolve_device
 from ..models.trainer import (COMPLETION_TASK, FitState, TaskSpec,
-                              fit_step, init_fit_state, make_schedule)
+                              fit_step, init_fit_state, make_adam,
+                              make_schedule)
 from .mesh import image_sharding, make_mesh, mean_over_mesh
 
 
@@ -253,8 +254,7 @@ def sharded_fit_step(cfg, datas, patch_size: int = 16,
             getattr(p, part).load_state_dict(sd)
         singles.append(p)
     params_b = stack_modules(singles)
-    state = FitState(params_b, torch.optim.Adam(
-        params_b.parameters(), lr=cfg.lrate, betas=(0.9, 0.999), eps=1e-8), 0)
+    state = FitState(params_b, make_adam(params_b.parameters(), cfg.lrate), 0)
     emb_b = stack_embedders(embs)
     consts = stack_consts([make_fit_consts(cfg, pad_to_canvas(datas[j], h, w),
                                            patch_size, device, task)

@@ -20,8 +20,9 @@ ranking here does none.
 over them, one K4 launch each way over 2,048 x 3 * B * n_cand), each
 image drawing its own batches from a generator seeded as its one-image
 ranking seeds its one, so each image's fit is its sequential one; then
-each image's own eval (npp_tpu ranking.py:326-535). The one-image fit is
-its B = 1 case (fit_candidates, rank_loss, Lattices.render).
+each image's own eval (npp_tpu ranking.py:326-535). The one-image ranking
+is its B = 1 case: both entries set up their inputs, then share the fit,
+the eval, the gather and the pick (_rank_core).
 
 Over a mesh (parallel/mesh.py), rank_proposals splits the candidates
 over its 'candidates' axis and rank_proposals_suite the images over its
@@ -34,8 +35,8 @@ equals the unsharded one up to the rounding of stacked products.
 """
 from __future__ import annotations
 
-import time
-from typing import Dict, Optional, Sequence
+import copy
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +50,7 @@ from ..losses.contextual import ContextualLoss
 from ..losses.lpips import LPIPS
 from ..losses.pixel import img2mse
 from ..losses.robust import adaptive_init, stacked_nll_mean_sum
-from ..models.trainer import make_schedule
+from ..models.trainer import make_adam, make_schedule
 from ..nn.embedder import (fourier_encode, gaussian_freq_bands,
                            normalize_coords, periodic_warp)
 from ..nn.mlp import NPPNetLight, render_activation
@@ -247,25 +248,21 @@ def eval_candidates(cfg, params: RankParams, lat: Lattices,
     canvas, the same on that crop with the held-out pixels composited into
     the image, and the held-out pixel MSE. CX runs on groups of
     candidates, as many as keep its (P, P) matrices within CX_GROUP_BYTES.
-    The render, LPIPS and CX are the spans npp.search.eval.{render,lpips,
-    cx}."""
+    The render, LPIPS and CX are the PhaseTimer phases npp.search.eval.
+    {render,lpips,cx}, each ending with the card's work; their walls go
+    into stats ('eval_render_s', 'eval_lpips_s', 'eval_cx_s')."""
     dev = img.device
     h, w = img.shape[:2]
     y0, x0, ch, cw = crop
     val = torch.as_tensor(np.asarray(i_val), dtype=torch.long, device=dev)
     vy, vx = val[:, 0], val[:, 1]
     n_cand = lat.angles.shape[0]
+    timer = PhaseTimer()
 
     def crop_of(x):
         return x[..., y0:y0 + ch, x0:x0 + cw, :]
 
-    def sync():
-        if dev.type == 'cuda':
-            torch.cuda.synchronize(dev)
-
-    sync()
-    t0 = time.time()
-    with span('npp.search.eval.render'):
+    with timer.phase('npp.search.eval.render'):
         coords = val.to(torch.float32)
         out = torch.cat([lat.render(params, c) for c in
                          coords.split(RENDER_CHUNK)], dim=1)  # (B, Nv, 3)
@@ -282,14 +279,10 @@ def eval_candidates(cfg, params: RankParams, lat: Lattices,
         in_crop = crop_of(in_val)
         comp_crop = ctx_crop * (1.0 - in_crop) + pred_crop * in_crop
         val_mse = torch.mean((out - gt_vals) ** 2, dim=(1, 2))
-        sync()
-    t1 = time.time()
-    with span('npp.search.eval.lpips'):
+    with timer.phase('npp.search.eval.lpips'):
         lpips_bbox = percep(pred_crop, gt_crop).reshape(n_cand)
         lpips_comp = percep(comp_crop, ctx_crop).reshape(n_cand)
-        sync()
-    t2 = time.time()
-    with span('npp.search.eval.cx'):
+    with timer.phase('npp.search.eval.cx'):
         p = (ch // 4) * (cw // 4)
         group = max(1, min(n_cand, CX_GROUP_BYTES // (4 * 4 * p * p)))
         mask = in_crop[None].expand(n_cand, -1, -1, -1) \
@@ -299,12 +292,10 @@ def eval_candidates(cfg, params: RankParams, lat: Lattices,
             spatial_mask=None if mask is None else mask[a:b]), n_cand, group)
         cx_comp = _per_sample(lambda a, b: contextual(
             comp_crop[a:b], ctx_crop[a:b], per_sample=True), n_cand, group)
-        sync()
-    t3 = time.time()
     if stats is not None:
-        stats.update(eval_render_s=t1 - t0, eval_lpips_s=t2 - t1,
-                     eval_cx_s=t3 - t2, cx_positions=p, cx_group=group,
-                     crop=(ch, cw))
+        stats.update({f'eval_{k}_s': timer.phases[f'npp.search.eval.{k}']
+                      for k in ('render', 'lpips', 'cx')},
+                     cx_positions=p, cx_group=group, crop=(ch, cw))
     comps = {'lpips_bbox': lpips_bbox, 'cx_bbox': cx_bbox,
              'lpips_comp': lpips_comp, 'cx_comp': cx_comp,
              'val_mse': val_mse}
@@ -360,56 +351,26 @@ def rank_proposals(cfg, masked_img: np.ndarray, i_train: np.ndarray,
     img = torch.as_tensor(np.asarray(masked_img), dtype=torch.float32,
                           device=device)
     params = init_rank_params(cfg, n_cand, device)
-    stats = {} if stats is None else stats
-    timer = PhaseTimer()
-
-    with matmul_precision('float32'):    # the fit sets its own
-        if params_override is not None:
-            params.mlp.load_state_dict(params_override['mlp'])
-        else:
-            pool = torch.as_tensor(np.asarray(i_train), dtype=torch.long,
-                                   device=device)
-            if device.type == 'cuda':
-                torch.cuda.synchronize(device)
-            with timer.phase('npp.search.rank_fit'):
-                losses = fit_candidates(
-                    params, lat, img, pool,
-                    torch.Generator().manual_seed(cfg.seed + 1), cfg.N_iters)
-                if mesh is not None:
-                    losses = mean_over_mesh(losses, mesh)
-                losses = losses.cpu().numpy()
-            fit_s = timer.phases['npp.search.rank_fit']
-            stats.update(fit_s=fit_s, fit_losses=losses,
-                         fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
-            print(f'[search] fit: {cfg.N_iters} steps of {n_cand} '
-                  f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step, '
-                  f'loss {losses[0]:.4f} -> {losses[-1]:.4f}', flush=True)
-        with timer.phase('npp.search.rank_eval'):
-            comps = eval_candidates(cfg, params, lat, img, i_val,
-                                    _eval_inputs(cfg, i_val, norm_res),
-                                    percep, contextual, stats)
-        stats['eval_s'] = timer.phases['npp.search.rank_eval']
-    if mesh is not None:
-        comps = gather_components(comps, mesh, cand_axis, n_real, device)
-    scores = combine_scores(cfg, comps)
-    distances = scores[getattr(cfg, 'rank_proxy', 'reference')]
+    pools = None
+    if params_override is not None:
+        params.mlp.load_state_dict(params_override['mlp'])
+    else:
+        pools = [torch.as_tensor(np.asarray(i_train), dtype=torch.long,
+                                 device=device)]
+    [(distances, comps)] = _rank_core(
+        cfg, params, [lat], img[None], pools, [i_val], percep,
+        contextual, stats, lambda ms, losses: (
+            f'[search] fit: {cfg.N_iters} steps of {n_cand} candidates, '
+            f'{ms:.2f} ms/step, loss {losses[0]:.4f} -> {losses[-1]:.4f}'),
+        [n_real], mesh, (cand_axis, 1, n_real), eval_stats=stats)
+    ref = combine_scores(cfg, comps)['reference']
     for c in range(n_real):
         print(f'[search] candidate {c + 1}/{n_real} '
               f'distance={distances[c]:.4f} '
-              f'(ref={scores["reference"][c]:.4f} '
-              f'mse={comps["val_mse"][c]:.5f})')
+              f'(ref={ref[c]:.4f} mse={comps["val_mse"][c]:.5f})')
     if return_components:
-        return np.asarray(distances), comps
-    return np.asarray(distances)
-
-
-def gather_components(comps: Dict[str, np.ndarray], mesh: Mesh, axis: str,
-                      n: int, device: torch.device) -> Dict[str, np.ndarray]:
-    """Each rank's score components (blocks of a leading axis), gathered
-    to every rank through the rank's device, the padding dropped."""
-    return {k: gather_leading_axis(torch.as_tensor(v, device=device), mesh,
-                                   axis, n).cpu().numpy()
-            for k, v in comps.items()}
+        return distances, comps
+    return distances
 
 
 def fit_candidates_suite(params: RankParams, lats: Sequence[Lattices],
@@ -431,8 +392,7 @@ def fit_candidates_suite(params: RankParams, lats: Sequence[Lattices],
         return _fit_on_card(params, lats, imgs, pools, gens, angles,
                             periods, n_iters)
     cfg = lats[0].cfg
-    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
-                           betas=(0.9, 0.999), eps=1e-8)
+    opt = make_adam(params.parameters(), cfg.lrate)
     schedule = make_schedule(cfg)
     nb, n_cand = angles.shape[:2]
     bi = torch.arange(nb, device=imgs.device)[:, None]
@@ -512,8 +472,7 @@ def _fit_on_card(params: RankParams, lats: Sequence[Lattices],
     t = torch.zeros(1, dtype=torch.long, device=dev)
     lr = torch.empty(1, device=dev)
     losses = torch.empty(n_iters, device=dev)
-    opt = torch.optim.Adam(params.parameters(), lr=cfg.lrate,
-                           betas=(0.9, 0.999), eps=1e-8, capturable=True)
+    opt = make_adam(params.parameters(), cfg.lrate, capturable=True)
     for group in opt.param_groups:   # not in the constructor: its check
         group['lr'] = lr             # of a card tensor would sync
 
@@ -563,13 +522,16 @@ def _fit_on_card(params: RankParams, lats: Sequence[Lattices],
     return losses
 
 
-def slice_rank_params(cfg, params: RankParams, j: int, n_cand: int,
-                      device: torch.device) -> RankParams:
+def slice_rank_params(params: RankParams, j: int,
+                      n_cand: int) -> RankParams:
     """Image j's candidates (rows j*n_cand .. (j+1)*n_cand) of a suite's
-    stacked RankParams, as a RankParams of n_cand."""
-    out = init_rank_params(cfg, n_cand, device)
-    out.load_state_dict({k: v[j * n_cand:(j + 1) * n_cand]
-                         for k, v in params.state_dict().items()})
+    stacked RankParams, as a RankParams of n_cand whose parameters are
+    views of the stack's rows: nothing is drawn or copied."""
+    rows = slice(j * n_cand, (j + 1) * n_cand)
+    views = {id(p): nn.Parameter(p.detach()[rows], requires_grad=False)
+             for p in params.parameters()}
+    out = copy.deepcopy(params, views)
+    out.mlp.n_cand = n_cand
     return out
 
 
@@ -598,7 +560,6 @@ def rank_proposals_suite(cfg, items, percep: LPIPS,
     h, w = items[0]['masked_img'].shape[:2]
     if any(it['masked_img'].shape[:2] != (h, w) for it in items):
         raise ValueError('suite ranking needs one shared canvas (pad first)')
-    stats = {} if stats is None else stats
     n_reals = [len(it['all_angles']) for it in items]
     n_cand = max(max(n_reals), int(getattr(cfg, 'rank_pad_candidates', 0)))
     n_img = len(items)
@@ -615,45 +576,79 @@ def rank_proposals_suite(cfg, items, percep: LPIPS,
 
     lats = [Lattices(cfg, padded(it['all_angles']), padded(it['all_periods']),
                      bands, it['norm_res'], device) for it in items]
-    angles = torch.stack([lat.angles for lat in lats])
-    periods = torch.stack([lat.periods for lat in lats])
     imgs = torch.stack([torch.as_tensor(np.asarray(it['masked_img']),
                                         dtype=torch.float32, device=device)
                         for it in items])
     pools = [torch.as_tensor(np.asarray(it['i_train']), dtype=torch.long,
                              device=device) for it in items]
     params = init_rank_params(cfg, nb * n_cand, device)
+    return _rank_core(
+        cfg, params, lats, imgs, pools, [it['i_val'] for it in items],
+        percep, contextual, stats,
+        lambda ms, losses: (
+            f'[search-suite] fit: {cfg.N_iters} steps of {nb} x {n_cand} '
+            f'candidates, {ms:.2f} ms/step'),
+        n_reals, mesh, (images_axis, 0, n_img))
+
+
+def _rank_core(cfg, params: RankParams, lats: Sequence[Lattices],
+               imgs: torch.Tensor, pools, i_vals, percep: LPIPS,
+               contextual: ContextualLoss, stats: Optional[dict], fit_line,
+               n_reals: Sequence[int], mesh: Optional[Mesh],
+               split: Tuple[str, int, int],
+               eval_stats: Optional[dict] = None) -> list:
+    """What both rank entries do after their set-up, in full f32: the
+    synced fit phase (none without pools: params_override), each image
+    drawing from a generator seeded cfg.seed + 1, into stats and
+    the printed fit_line(ms per step, losses), each image's eval into
+    eval_stats, the components gathered over the mesh along split = (its
+    axis, the split dimension of (images, candidates), that dimension's
+    unpadded length), and each image's distances under cfg.rank_proxy.
+    Returns [(distances, comps)], image j's cut to n_reals[j] candidates."""
+    dev = imgs.device
+    nb, n_cand = len(lats), lats[0].angles.shape[0]
+    stats = {} if stats is None else stats
     timer = PhaseTimer()
 
+    def stacked(ts):   # one image's as a view, as its fit always took it
+        return ts[0][None] if nb == 1 else torch.stack(ts)
+
     with matmul_precision('float32'):    # the fit sets its own
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
-        with timer.phase('npp.search.rank_fit'):
-            losses = fit_candidates_suite(
-                params, lats, imgs, pools,
-                [torch.Generator().manual_seed(cfg.seed + 1) for _ in items],
-                angles, periods, cfg.N_iters)
-            if mesh is not None:
-                losses = mean_over_mesh(losses, mesh)
-            losses = losses.cpu().numpy()
-        fit_s = timer.phases['npp.search.rank_fit']
-        stats.update(fit_s=fit_s, fit_losses=losses,
-                     fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
-        print(f'[search-suite] fit: {cfg.N_iters} steps of {nb} x {n_cand} '
-              f'candidates, {stats["fit_ms_per_step"]:.2f} ms/step', flush=True)
+        if pools is not None:
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+            with timer.phase('npp.search.rank_fit'):
+                losses = fit_candidates_suite(
+                    params, lats, imgs, pools,
+                    [torch.Generator().manual_seed(cfg.seed + 1)
+                     for _ in lats],
+                    stacked([lat.angles for lat in lats]),
+                    stacked([lat.periods for lat in lats]), cfg.N_iters)
+                if mesh is not None:
+                    losses = mean_over_mesh(losses, mesh)
+                losses = losses.cpu().numpy()
+            fit_s = timer.phases['npp.search.rank_fit']
+            stats.update(fit_s=fit_s, fit_losses=losses,
+                         fit_ms_per_step=1e3 * fit_s / max(cfg.N_iters, 1))
+            print(fit_line(stats['fit_ms_per_step'], losses), flush=True)
         with timer.phase('npp.search.rank_eval'):
             comps = [eval_candidates(
-                cfg, slice_rank_params(cfg, params, j, n_cand, device),
-                lats[j], imgs[j], it['i_val'],
-                _eval_inputs(cfg, it['i_val'], it['norm_res']),
-                percep, contextual) for j, it in enumerate(items)]
+                cfg, params if nb == 1 else slice_rank_params(params, j,
+                                                              n_cand),
+                lat, imgs[j], i_val, _eval_inputs(cfg, i_val, lat.norm_res),
+                percep, contextual, eval_stats)
+                for j, (lat, i_val) in enumerate(zip(lats, i_vals))]
         stats['eval_s'] = timer.phases['npp.search.rank_eval']
     comps = {k: np.stack([c[k] for c in comps]) for k in comps[0]}
     if mesh is not None:
-        comps = gather_components(comps, mesh, images_axis, n_img, device)
+        axis, dim, n = split
+        comps = gather_leading_axis(
+            {k: torch.as_tensor(v, device=dev).movedim(dim, 0)
+             for k, v in comps.items()}, mesh, axis, n)
+        comps = {k: v.movedim(0, dim).cpu().numpy() for k, v in comps.items()}
     out = []
-    for j in range(n_img):
-        cj = {k: v[j, :n_reals[j]] for k, v in comps.items()}
+    for j, n_real in enumerate(n_reals):
+        cj = {k: v[j, :n_real] for k, v in comps.items()}
         scores = combine_scores(cfg, cj)
         out.append((np.asarray(scores[getattr(cfg, 'rank_proxy',
                                               'reference')]), cj))

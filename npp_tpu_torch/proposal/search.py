@@ -37,16 +37,6 @@ from .search_engine import search_periodicity_by_feat
 PHASES = ('detect', 'rank', 'artefacts')   # the spans npp.search.<phase>
 
 
-def _phase_walls(timer: PhaseTimer, stats: dict) -> str:
-    """The phases' walls into `stats` ('<phase>_s' and 'total_s'), and as
-    the printed summary."""
-    walls = {f'{k}_s': timer.phases.get(f'npp.search.{k}', 0.0)
-             for k in PHASES}
-    walls['total_s'] = sum(walls.values())
-    stats.update(walls)
-    return ' '.join(f'{k[:-2]}={v:.1f}s' for k, v in walls.items())
-
-
 def _prepare_search(cfg, data: dict, device: torch.device) -> dict:
     """Host phase of one search: tight-canvas pad, candidate detection
     (its loss grid on `device`) and the pseudo-split. `data` holds the
@@ -176,34 +166,16 @@ def run_search(cfg, percep: Optional[LPIPS] = None,
     dict to fill with the phase walls ('detect_s', 'rank_s',
     'artefacts_s', 'total_s': the PhaseTimer phases npp.search.<phase>)
     and rank_proposals' split."""
-    device = resolve_device(device)
-    stats = {} if stats is None else stats
-    timer = PhaseTimer()
-    with span('npp.block'):
-        with timer.phase('npp.search.detect'):
-            if data is None:
-                data = read_example_dir(cfg.datadir)
-            prep = _prepare_search(cfg, data, device)
-        print(f'[search] {len(prep["all_angles"])} candidates detected '
-              f'({timer.phases["npp.search.detect"]:.1f}s)', flush=True)
-
+    def rank(preps, *towers, **kw):
+        (p,) = preps
         # ranking (reference: search.py:78-219)
-        with timer.phase('npp.search.rank'):
-            if percep is None:
-                percep = LPIPS(device, net='vgg')
-            if contextual is None:
-                contextual = ContextualLoss(device)
-            distances, rank_comps = rank_proposals(
-                cfg, prep['masked_img'], prep['i_train'], prep['i_val'],
-                prep['all_angles'], prep['all_periods'], percep, contextual,
-                norm_res=(prep['dh'], prep['dw']), return_components=True,
-                device=device, stats=stats)
+        return [rank_proposals(
+            cfg, p['masked_img'], p['i_train'], p['i_val'],
+            p['all_angles'], p['all_periods'], *towers,
+            norm_res=(p['dh'], p['dw']), return_components=True, **kw)]
 
-        with timer.phase('npp.search.artefacts'):
-            odgt = _finish_search(prep, distances, rank_comps, save)
-    print(f'[search] phases: {_phase_walls(timer, stats)}', file=sys.stderr,
-          flush=True)
-    return odgt
+    return _search([cfg], [data], rank, percep, contextual, device, save,
+                   stats, None, '[search] phases', detected='[search]')[0]
 
 
 def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
@@ -223,40 +195,66 @@ def run_search_suite(cfgs, percep: Optional[LPIPS] = None,
     (rank_proposals_suite); every rank detects every image and gets every
     record, and only the mesh's rank 0 writes the files, before a barrier
     that every rank passes once they are written."""
+    def rank(preps, *towers, **kw):
+        hmax = max(p['masked_img'].shape[0] for p in preps)
+        wmax = max(p['masked_img'].shape[1] for p in preps)
+        items = []
+        for p in preps:
+            h, w = p['masked_img'].shape[:2]
+            pad3 = ((0, hmax - h), (0, wmax - w), (0, 0))
+            items.append({'masked_img': np.pad(p['masked_img'], pad3),
+                          'i_train': p['i_train'], 'i_val': p['i_val'],
+                          'all_angles': p['all_angles'],
+                          'all_periods': p['all_periods'],
+                          'norm_res': (p['dh'], p['dw'])})
+        return rank_proposals_suite(cfgs[0], items, *towers, mesh=mesh,
+                                    images_axis=images_axis, **kw)
+
+    return _search(cfgs, datas or [None] * len(cfgs), rank, percep,
+                   contextual, device, save, stats, mesh,
+                   f'[search-suite] {len(cfgs)} images')
+
+
+def _search(cfgs, datas, rank, percep: Optional[LPIPS],
+            contextual: Optional[ContextualLoss], device, save: bool,
+            stats: Optional[dict], mesh: Optional[Mesh], label: str,
+            detected: Optional[str] = None) -> list:
+    """Both search entries' span npp.block and phases: detect (each
+    cfg's datas entry, or its cfg.datadir where None), rank (the default
+    towers where none are given; rank(preps, percep, contextual, device=,
+    stats=) -> [(distances, comps)]) and artefacts (the records, written
+    by the mesh's rank 0, then a barrier). The walls go into stats and to
+    stderr after `label`; `detected` tags a line after detection."""
     device = resolve_device(device)
     stats = {} if stats is None else stats
     timer = PhaseTimer()
     with span('npp.block'):
         with timer.phase('npp.search.detect'):
-            datas = datas if datas is not None else \
-                [read_example_dir(cfg.datadir) for cfg in cfgs]
-            preps = [_prepare_search(cfg, d, device)
+            preps = [_prepare_search(cfg, read_example_dir(cfg.datadir)
+                                     if d is None else d, device)
                      for cfg, d in zip(cfgs, datas)]
+        if detected is not None:
+            print(f'{detected} {len(preps[0]["all_angles"])} candidates '
+                  f'detected ({timer.phases["npp.search.detect"]:.1f}s)',
+                  flush=True)
         with timer.phase('npp.search.rank'):
-            hmax = max(p['masked_img'].shape[0] for p in preps)
-            wmax = max(p['masked_img'].shape[1] for p in preps)
-            items = []
-            for p in preps:
-                h, w = p['masked_img'].shape[:2]
-                pad3 = ((0, hmax - h), (0, wmax - w), (0, 0))
-                items.append({'masked_img': np.pad(p['masked_img'], pad3),
-                              'i_train': p['i_train'], 'i_val': p['i_val'],
-                              'all_angles': p['all_angles'],
-                              'all_periods': p['all_periods'],
-                              'norm_res': (p['dh'], p['dw'])})
             if percep is None:
                 percep = LPIPS(device, net='vgg')
             if contextual is None:
                 contextual = ContextualLoss(device)
-            ranked = rank_proposals_suite(cfgs[0], items, percep, contextual,
-                                          device=device, stats=stats,
-                                          mesh=mesh, images_axis=images_axis)
+            ranked = rank(preps, percep, contextual, device=device,
+                          stats=stats)
         with timer.phase('npp.search.artefacts'):
             save = save and (mesh is None or mesh.rank == 0)
             odgts = [_finish_search(p, d, c, save)
                      for p, (d, c) in zip(preps, ranked)]
             if mesh is not None:
                 mesh.barrier()
-    print(f'[search-suite] {len(cfgs)} images: {_phase_walls(timer, stats)}',
+    walls = {f'{k}_s': timer.phases.get(f'npp.search.{k}', 0.0)
+             for k in PHASES}
+    walls['total_s'] = sum(walls.values())
+    stats.update(walls)
+    print(f'{label}: ' + ' '.join(f'{k[:-2]}={v:.1f}s'
+                                  for k, v in walls.items()),
           file=sys.stderr, flush=True)
     return odgts

@@ -3,7 +3,8 @@ run_search under a profiler records one npp.block holding the search's
 phases, N_iters npp.step spans in the ranking's fit with the step's draw
 (its copy inside), render, pixel loss, backward and Adam, and the eval's
 render, LPIPS and CX; the same names land in the Chrome trace. Tracing
-changes no distance, bit for bit. run_search_suite opens its block too."""
+changes no distance, bit for bit. run_search_suite opens its block too.
+Both entries fill the stats keys that their readers read."""
 import json
 
 import numpy as np
@@ -113,3 +114,40 @@ def test_search_suite_opens_a_block(towers, tmp_path, fresh_record):
     assert [spans[i].step for i in steps] == [0, 1]
     assert len(_named(spans, 'npp.search.eval.cx')) == 2
     assert np.isfinite([s.end for s in spans]).all()
+
+
+FIT_KEYS = ('fit_s', 'fit_ms_per_step', 'eval_s')
+EVAL_SPLIT = ('eval_render_s', 'eval_lpips_s', 'eval_cx_s')
+WALLS = ('detect_s', 'rank_s', 'artefacts_s', 'total_s')
+
+
+@pytest.mark.parametrize('entry', ['one image', 'suite of two'])
+def test_search_stats_hold_every_key_a_reader_reads(towers, entry):
+    """The stats a search fills, as the benchmark's search program,
+    chip_smoke.py and scripts/torch_run_suite.py read them: the fit's and
+    eval's walls and per-step losses, the phases' walls, and for one image
+    the eval's split with its CX sizes and crop."""
+    cfg = replace(SearchConfig(), **TINY)
+    stats = {}
+    if entry == 'one image':
+        search.run_search(cfg, *towers, device=CPU,
+                          data=synthetic_search_data(1, 64, 96), save=False,
+                          stats=stats)
+    else:
+        search.run_search_suite([cfg, cfg], *towers, device=CPU,
+                                datas=[synthetic_search_data(s, 64, 96)
+                                       for s in (1, 2)],
+                                save=False, stats=stats)
+    assert stats['fit_losses'].shape == (TINY['N_iters'],)
+    assert np.isfinite(stats['fit_losses']).all()
+    split = EVAL_SPLIT if entry == 'one image' else ()
+    for key in FIT_KEYS + split + WALLS:
+        assert isinstance(stats[key], float) and stats[key] >= 0.0, key
+    assert stats['total_s'] == pytest.approx(
+        stats['detect_s'] + stats['rank_s'] + stats['artefacts_s'])
+    assert stats['fit_ms_per_step'] == pytest.approx(
+        1e3 * stats['fit_s'] / TINY['N_iters'])
+    if entry == 'one image':
+        ch, cw = stats['crop']
+        assert stats['cx_positions'] == (ch // 4) * (cw // 4) > 0
+        assert stats['cx_group'] >= 1
